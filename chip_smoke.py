@@ -8,22 +8,39 @@ Run from the root of a checkout on a machine with a CUDA card, nvcc
 nothing of JAX or of the JAX package. Phases, each printing a line:
 
 1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
-2. the nvcc build of the CUDA ladder kernel from csrc/, with its build
-   seconds, registers per thread and spill bytes;
-3. kernel against its plain PyTorch version on the card, byte for byte:
-   random lanes, the RFC 7748 edge u values, an all-zero peer, a nonzero zr,
-   ragged batches, rank-1 and broadcast calls;
-4. known answers: RFC 7748 5.2 and 6.1 vectors, and random lanes against an
-   independent Python-integer X25519;
-5. the main path at full size: 262,144 lanes of key exchange through
-   models.x25519 (both public keys, both shared secrets), which must agree on
-   every lane and must have launched the kernel; then create_shared_key timed
-   with CUDA events against the plain version at the same batch.
+2. the nvcc build of every CUDA kernel from csrc/ (one nvcc process per
+   source, all at once), with build seconds, registers per thread and spill
+   and stack bytes per kernel;
+3. the X25519 ladder kernel against its plain PyTorch version on the card,
+   byte for byte: random lanes, the RFC 7748 edge u values, an all-zero peer,
+   a nonzero zr, ragged batches, rank-1 and broadcast calls;
+4. X25519 known answers: RFC 7748 5.2 and 6.1 vectors, and random lanes
+   against an independent Python-integer X25519;
+5. the X25519 main path at full size: 262,144 lanes of key exchange through
+   models.x25519, which must agree on every lane and must have launched the
+   kernel; then create_shared_key timed against the plain version;
+6. the base-multiply, SHA-512, keygen and sign kernels against their plain
+   versions, byte for byte: 4,096 random lanes, ragged batches, rank-1 and
+   broadcast calls, fold 8 and fold 4 with all four base-multiply modes, the
+   blinded routes (which must not change a byte), SHA-512 at the padding
+   edges and sign at the fused cap (943/944-byte messages);
+7. Ed25519 known answers: RFC 8032 7.1 TEST 1-3, SHA-512 against hashlib,
+   and random lanes (short and long messages) against an independent
+   Python-integer Ed25519;
+8. the Ed25519 paths at full size, each driven with every launch count set
+   to 0 just before it and read just after: keygen, sign of 64-byte
+   messages, the same sign blinded, calculate_public_key_fast with fold 8
+   and fold 4 (held equal to the ladder's calculate_public_key on all
+   lanes), sha512 of 64-byte messages, and the long-message sign (1,024
+   lanes, 944-4,096 bytes); then each kernel timed against its plain
+   version at the same batch.
 
-It prints a JSON line of the kernels, then, as its last line,
-{"ok": true, "device": {...}}. Any failed check exits non-zero before that.
+It prints the run's wall time, a JSON line of the kernels, the card line,
+then, as its last line, {"ok": true, "device": {...}}. Any failed check
+exits non-zero before that.
 """
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -37,10 +54,23 @@ SEED = 7748
 MAIN_BATCH = 262_144          # the batch of bench.py's headline
 CHECK_LANES = 4096
 ORACLE_LANES = 4
-KERNEL_SOURCE = "curve25519_tpu_torch/ops/cuda/csrc/ladder.cu"
-REPLACES = "curve25519_tpu/ops/pallas/ladder_kernel.py:30"
+LONG_LANES = 1024             # the long-message sign route
+CSRC = "curve25519_tpu_torch/ops/cuda/csrc/"
+# kernel -> (source, the TPU kernel body it replaces)
+KERNELS = {
+    "x25519_ladder_kernel": ("ladder.cu",
+                             "curve25519_tpu/ops/pallas/ladder_kernel.py:30"),
+    "basemult_kernel": ("basemult.cu",
+                        "curve25519_tpu/ops/pallas/edwards_kernel.py:143"),
+    "sha512_kernel": ("sha512.cu",
+                      "curve25519_tpu/ops/pallas/sha512_kernel.py:101"),
+    "keygen_kernel": ("sign.cu",
+                      "curve25519_tpu/ops/pallas/sign_kernel.py:183"),
+    "sign_kernel": ("sign.cu", "curve25519_tpu/ops/pallas/sign_kernel.py:214"),
+}
 
 P = 2**255 - 19
+ELL = 2**252 + 27742317777372353535851937790883648493
 
 # RFC 7748 5.2 and 6.1 vectors (the same constants as tests/test_x25519.py)
 V1_K = "a546e36bf0527c9d3b16154b82465edd62144c0ac1fc5a18506a2244ba449ac4"
@@ -55,8 +85,29 @@ B_SK = "5dab087e624a8a4b79e17f8b83800ee66f3bb1292618b6fd1c2f8b27ff88e0eb"
 B_PK = "de9edb7d7b7dc1b4d35b61c2ece435373f8343c85b78674dadfc7e146f882b4f"
 SHARED = "4a5d9d5ba4ce2de1728e3bf480350f25e07e21c947d19e3376f09b3c1e161742"
 
+# RFC 8032 7.1 TEST 1-3 (sk, pk, msg, sig), the constants of
+# tests/test_ed25519.py
+ED_VECS = [
+    ("9d61b19deffd5a60ba844af492ec2cc44449c5697b326919703bac031cae7f60",
+     "d75a980182b10ab7d54bfed3c964073a0ee172f3daa62325af021a68f707511a",
+     "",
+     "e5564300c360ac729086e2cc806e828a84877f1eb8e5d974d873e06522490155"
+     "5fb8821590a33bacc61e39701cf9b46bd25bf5f0595bbe24655141438e7a100b"),
+    ("4ccd089b28ff96da9db6c346ec114e0f5b8a319f35aba624da8cf6ed4fb8a6fb",
+     "3d4017c3e843895a92b70aa74d1b7ebc9c982ccf2ec4968cc0cd55f12af4660c",
+     "72",
+     "92a009a9f0d4cab8720e820b5f642540a2b27b5416503f8fb3762223ebdb69da"
+     "085ac1e43e15996e458f3613d0f11d8c387b2eaeb4302aeeb00d291612bb0c00"),
+    ("c5aa8df43f9f837bedb7442f31dcb7b166d38535076f094b85ce3a2e0b4458f7",
+     "fc51cd8e6218a1a38da47ed00230f0580816ed13ba3303ac5deb911548908025",
+     "af82",
+     "6291d657deec24024827e69c3abe01a30ce548a284743a445e3680d7db5ac3ac"
+     "18ff9b538d16f290ae67f760984dc6594a7c15e9716ed28dc027beceea1ec40a"),
+]
+
 # benchmarks/tpu_vectors.py x25519_edge_u: u values with key 0x07 * 32
 EDGE_U = [0, 1, P, P + 1, 2**255 - 1, 1 | 1 << 255]
+SHA_LENGTHS = [0, 1, 111, 112, 127, 128, 129, 239, 240]
 
 
 def fail(msg):
@@ -68,9 +119,11 @@ def check(cond, msg):
         fail(msg)
 
 
+# ---------------------------------------------------------------------------
+# Independent oracles on Python integers (no code shared with the port)
+# ---------------------------------------------------------------------------
 def oracle_x25519(k: bytes, u: bytes) -> bytes:
-    """RFC 7748 section 5 X25519 on Python integers: an oracle independent of
-    the limb code under test."""
+    """RFC 7748 section 5 X25519 on Python integers."""
     k = bytearray(k)
     k[0] &= 248
     k[31] = (k[31] & 127) | 64
@@ -95,6 +148,65 @@ def oracle_x25519(k: bytes, u: bytes) -> bytes:
     return (x2 * pow(z2, P - 2, P) % P).to_bytes(32, "little")
 
 
+_ED_D = -121665 * pow(121666, P - 2, P) % P
+
+
+def _ed_base():
+    y = 4 * pow(5, P - 2, P) % P
+    x2 = (y * y - 1) * pow(_ED_D * y * y + 1, P - 2, P) % P
+    x = pow(x2, (P + 3) // 8, P)
+    if (x * x - x2) % P:
+        x = x * pow(2, (P - 1) // 4, P) % P
+    return (P - x if x & 1 else x, y)
+
+
+_ED_BASE = _ed_base()
+
+
+def _ed_add(p, q):
+    """Affine Edwards addition (complete formulas), two inversions."""
+    (x1, y1), (x2, y2) = p, q
+    k = _ED_D * x1 * x2 * y1 * y2 % P
+    return ((x1 * y2 + x2 * y1) * pow(1 + k, P - 2, P) % P,
+            (y1 * y2 + x1 * x2) * pow(1 - k, P - 2, P) % P)
+
+
+def _ed_base_enc(k):
+    r, p = (0, 1), _ED_BASE
+    while k:
+        if k & 1:
+            r = _ed_add(r, p)
+        p = _ed_add(p, p)
+        k >>= 1
+    x, y = r
+    return (y | (x & 1) << 255).to_bytes(32, "little")
+
+
+def _clamp_int(b):
+    b = bytearray(b)
+    b[0] &= 248
+    b[31] = (b[31] & 127) | 64
+    return int.from_bytes(b, "little")
+
+
+def oracle_ed25519_pk(seed: bytes) -> bytes:
+    """RFC 8032 5.1.5 public key on Python integers and hashlib."""
+    return _ed_base_enc(_clamp_int(hashlib.sha512(seed).digest()[:32]))
+
+
+def oracle_ed25519_sign(seed: bytes, pk: bytes, msg: bytes) -> bytes:
+    """RFC 8032 5.1.6 signature on Python integers and hashlib."""
+    md = hashlib.sha512(seed).digest()
+    a = _clamp_int(md[:32])
+    r = int.from_bytes(hashlib.sha512(md[32:] + msg).digest(), "little") % ELL
+    R = _ed_base_enc(r)
+    h = int.from_bytes(hashlib.sha512(R + pk + msg).digest(), "little") % ELL
+    return R + ((r + h * a) % ELL).to_bytes(32, "little")
+
+
+# ---------------------------------------------------------------------------
+# Helpers
+# ---------------------------------------------------------------------------
 def hex_bytes(s, device):
     return torch.tensor(list(bytes.fromhex(s)), dtype=torch.uint8,
                         device=device)
@@ -104,8 +216,18 @@ def row_bytes(t):
     return bytes(t.cpu().tolist())
 
 
+def rand_bytes(rng, shape, dev):
+    return torch.from_numpy(rng.integers(0, 256, shape, np.uint8)).to(dev)
+
+
 def max_abs_err(a, b):
-    return int((a.to(torch.int32) - b.to(torch.int32)).abs().max().item())
+    if isinstance(a, tuple):
+        return max(max_abs_err(x, y) for x, y in zip(a, b))
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+def same(a, b):
+    return max_abs_err(a, b) == 0
 
 
 def card_line():
@@ -115,6 +237,128 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def max_sm_clock_hz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def timed_once(fn, *args):
+    """(device seconds of one call by CUDA events, its output); the caller
+    warms the function up first."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3, out
+
+
+class Counts:
+    """Every kernel's launch count, set to 0 and read around one path."""
+
+    def __init__(self):
+        from curve25519_tpu_torch.ops.cuda import (
+            edwards_kernel, ladder_kernel, sha512_kernel, sign_kernel,
+        )
+        self.mods = {"x25519_ladder_kernel": ladder_kernel,
+                     "basemult_kernel": edwards_kernel,
+                     "sha512_kernel": sha512_kernel}
+        self.sign = sign_kernel
+        self.total = {k: 0 for k in KERNELS}
+
+    def zero(self):
+        for m in self.mods.values():
+            m.launches = 0
+        self.sign.launches.update(keygen=0, sign=0)
+
+    def read(self):
+        got = {k: m.launches for k, m in self.mods.items()}
+        got["keygen_kernel"] = self.sign.launches["keygen"]
+        got["sign_kernel"] = self.sign.launches["sign"]
+        for k, v in got.items():
+            self.total[k] += v
+        return got
+
+    def drive(self, fn, *args):
+        """Run one main path with the counts zeroed before and read after;
+        returns (its output, host wall seconds, the counts)."""
+        torch.cuda.synchronize()
+        self.zero()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, self.read()
+
+
+# ---------------------------------------------------------------------------
+# Bounds: the least time the card could take for the work of one call.
+# Per lane the kernels issue int32 multiply-adds (IMAD, on the FMA pipe) for
+# the limb products and plain int32 logic, shift and add operations (on the
+# ALU pipe) for the table selects and SHA-512 rounds. Counted from the
+# algorithm and calibrated on the ladder's SASS (PR 1: a field multiply is
+# 422 IMAD with its reduction, a squaring 232, a small-constant multiply
+# 22): each pipe issues 64 lanes per clock per SM. The carries, moves and
+# loads are not counted, so the bound is below the true least time. Bytes:
+# each input read once and each output written once at 3.35 TB/s.
+# ---------------------------------------------------------------------------
+IMAD_MUL, IMAD_SQR, IMAD_SMALL = 422, 232, 22
+IMAD_SC_MUL = 400 + 399 + 20 + 10       # products, FOLD_SC, 2^260, delta
+IMAD_SC_REDUCE = 399 + 20 + 10           # from_digest's reduce40
+SHA_BLOCK_ALU = 80 * 32 + 64 * 22        # 64-bit rounds and schedule
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _inv_imad():
+    return 254 * IMAD_SQR + 11 * IMAD_MUL
+
+
+def basemult_ops(nfolds, use_bp=False):
+    """(IMAD, ALU) per lane of one base multiply with its epilogue (any
+    mode: one inversion and two multiplies)."""
+    steps = 256 // nfolds - 1
+    muls = 4 + steps * 11 + (8 if use_bp else 0) + 2
+    sqrs = steps * 4
+    gathers = steps + 1
+    alu = gathers * (1 << nfolds) * 31    # 30 masked ORs and 1 compare
+    return muls * IMAD_MUL + sqrs * IMAD_SQR + _inv_imad(), alu
+
+
+def ladder_ops():
+    step = 5 * IMAD_MUL + 4 * IMAD_SQR + IMAD_SMALL
+    start = 3 * IMAD_MUL + 2 * IMAD_SQR + IMAD_SMALL
+    return 254 * step + start + _inv_imad(), 0
+
+
+def keygen_ops(use_bl=False):
+    imad, alu = basemult_ops(8, use_bp=use_bl)
+    if use_bl:
+        imad += 10 + 10                   # the mod and add of a + bl
+    return imad, alu + SHA_BLOCK_ALU
+
+
+def sign_ops(blocks, use_bl=False):
+    """blocks: SHA-512 blocks of the two message hashes (data-dependent)."""
+    imad, alu = basemult_ops(8, use_bp=use_bl)
+    imad += 2 * IMAD_SC_REDUCE + IMAD_SC_MUL + 20
+    return imad, alu + (1 + blocks) * SHA_BLOCK_ALU
+
+
+def bound_ms(lanes_ops, nbytes):
+    """lanes_ops: summed (IMAD, ALU) over the call's lanes."""
+    props = torch.cuda.get_device_properties(0)
+    rate = props.multi_processor_count * 64 * max_sm_clock_hz()
+    t_ops = max(lanes_ops) / rate
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+# ---------------------------------------------------------------------------
+# Phases 1-5: the card, the build, the X25519 ladder
+# ---------------------------------------------------------------------------
 def phase_device():
     card = card_line()
     print(card)
@@ -126,24 +370,30 @@ def phase_device():
 
 def phase_build():
     from curve25519_tpu_torch.ops.cuda import build
-    info = build.build_cuda()
-    build.load_cuda()
-    check("registers" in info, "ptxas report not found in the nvcc log")
-    print("phase 2 build: nvcc %.1f s | %d registers/thread | spill stores "
-          "%d B, spill loads %d B, stack %d B"
-          % (info["build_seconds"], info["registers"],
-             info.get("spill_store_bytes", -1),
-             info.get("spill_load_bytes", -1), info.get("stack_bytes", -1)))
-    return info
+    report = build.build_cuda()
+    kernels = {}
+    for name in build.LIBRARIES:
+        build.load_cuda(name)
+        for kernel, info in report[name]["kernels"].items():
+            check("registers" in info, "no ptxas report for " + kernel)
+            kernels[kernel] = info
+            print("phase 2 build: %s.cu %.1f s | %s: %d registers/thread, "
+                  "spill stores %d B, spill loads %d B, stack %d B"
+                  % (name, report[name]["build_seconds"], kernel,
+                     info["registers"], info["spill_store_bytes"],
+                     info["spill_load_bytes"], info["stack_bytes"]))
+    print("phase 2 build: %d sources in parallel, %.1f s wall"
+          % (len(build.LIBRARIES), report["wall_seconds"]))
+    return kernels
 
 
-def phase_kernel_vs_plain(dev, rng, lanes=CHECK_LANES):
+def phase_ladder_vs_plain(dev, rng, lanes=CHECK_LANES):
     from curve25519_tpu_torch.config import int_to_limbs
     from curve25519_tpu_torch.models import montgomery
     from curve25519_tpu_torch.ops.cuda.ladder_kernel import point_multiply_cuda
 
-    u = torch.from_numpy(rng.integers(0, 256, (lanes, 32), np.uint8)).to(dev)
-    k = torch.from_numpy(rng.integers(0, 256, (lanes, 32), np.uint8)).to(dev)
+    u = rand_bytes(rng, (lanes, 32), dev)
+    k = rand_bytes(rng, (lanes, 32), dev)
     got = point_multiply_cuda(u, k)
     want = montgomery.point_multiply(u, k)
     torch.cuda.synchronize()
@@ -182,13 +432,13 @@ def phase_kernel_vs_plain(dev, rng, lanes=CHECK_LANES):
         bcast, montgomery.point_multiply(u[3], k[:16])),
         "broadcast of one point over 16 keys != plain")
     torch.cuda.synchronize()
-    print("phase 3 kernel vs plain: %d random lanes, %d edge u, zero peer, "
+    print("phase 3 ladder vs plain: %d random lanes, %d edge u, zero peer, "
           "zr, ragged 1/127/129/1000, rank-1, broadcast: byte-equal "
           "(max_abs_err %d)" % (lanes, len(EDGE_U), err))
     return err
 
 
-def phase_known_answers(dev, rng):
+def phase_x25519_known_answers(dev, rng):
     from curve25519_tpu_torch.models import x25519
 
     u = torch.stack([hex_bytes(V1_U, dev), hex_bytes(V2_U, dev)])
@@ -200,6 +450,8 @@ def phase_known_answers(dev, rng):
     pks = x25519.calculate_public_key(sks)
     check(row_bytes(pks[0]).hex() == A_PK, "RFC 7748 6.1 Alice pk")
     check(row_bytes(pks[1]).hex() == B_PK, "RFC 7748 6.1 Bob pk")
+    check(torch.equal(x25519.calculate_public_key_fast(sks), pks),
+          "RFC 7748 6.1 pk through the fold-8 base multiply")
     shared = x25519.create_shared_key(pks.flip(0), sks)
     check(row_bytes(shared[0]).hex() == SHARED
           and row_bytes(shared[1]).hex() == SHARED, "RFC 7748 6.1 shared")
@@ -212,29 +464,26 @@ def phase_known_answers(dev, rng):
         check(row_bytes(got[i]) == oracle_x25519(sk[i].tobytes(),
                                                  peer[i].tobytes()),
               "lane %d disagrees with the Python oracle" % i)
-    print("phase 4 known answers: RFC 7748 5.2 (2), 6.1 (pk, pk, shared), "
-          "%d random lanes vs the Python-integer oracle: ok" % ORACLE_LANES)
+    print("phase 4 X25519 known answers: RFC 7748 5.2 (2), 6.1 (pk, pk, "
+          "fast pk, shared), %d random lanes vs the Python-integer oracle: ok"
+          % ORACLE_LANES)
 
 
-def phase_main(dev, rng, card, batch=MAIN_BATCH):
+def phase_x25519_main(dev, rng, card, counts, batch=MAIN_BATCH):
     from curve25519_tpu_torch.models import montgomery, x25519
-    from curve25519_tpu_torch.ops.cuda import ladder_kernel
     from curve25519_tpu_torch.utils.profiling import bench
 
-    sk_a = torch.from_numpy(rng.integers(0, 256, (batch, 32), np.uint8)).to(dev)
-    sk_b = torch.from_numpy(rng.integers(0, 256, (batch, 32), np.uint8)).to(dev)
-    torch.cuda.synchronize()
+    sk_a = rand_bytes(rng, (batch, 32), dev)
+    sk_b = rand_bytes(rng, (batch, 32), dev)
 
-    ladder_kernel.launches = 0
-    t0 = time.perf_counter()
-    pk_a = x25519.calculate_public_key(sk_a)
-    pk_b = x25519.calculate_public_key(sk_b)
-    s_ab = x25519.create_shared_key(pk_b, sk_a)
-    s_ba = x25519.create_shared_key(pk_a, sk_b)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ladder_kernel.launches
+    def exchange():
+        pk_a = x25519.calculate_public_key(sk_a)
+        pk_b = x25519.calculate_public_key(sk_b)
+        return (pk_b, x25519.create_shared_key(pk_b, sk_a),
+                x25519.create_shared_key(pk_a, sk_b))
 
+    (pk_b, s_ab, s_ba), wall, got = counts.drive(exchange)
+    launches = got["x25519_ladder_kernel"]
     check(launches > 0, "the main path launched the ladder kernel 0 times")
     check(s_ab.shape == (batch, 32) and s_ab.dtype == torch.uint8,
           "shared secret has shape %s %s" % (tuple(s_ab.shape), s_ab.dtype))
@@ -244,53 +493,393 @@ def phase_main(dev, rng, card, batch=MAIN_BATCH):
         check(row_bytes(s_ab[i]) == oracle_x25519(
             row_bytes(sk_a[i]), row_bytes(pk_b[i])),
             "main-path lane %d disagrees with the Python oracle" % i)
-    print("phase 5 main path: %d lanes, 2 x calculate_public_key + 2 x "
+    print("phase 5 X25519 main path: %d lanes, 2 x calculate_public_key + 2 x "
           "create_shared_key in %.3f s wall, %d kernel launches, secrets "
           "agree on every lane" % (batch, wall, launches))
 
     kernel_s = bench(x25519.create_shared_key, pk_b, sk_a, reps=3, rounds=3)
     montgomery.point_multiply(pk_b[:8], sk_a[:8])   # warm the plain path
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    plain = montgomery.point_multiply(pk_b, sk_a)
-    end.record()
-    end.synchronize()
-    plain_s = start.elapsed_time(end) / 1e3
+    plain_s, plain = timed_once(montgomery.point_multiply, pk_b, sk_a)
     err = max_abs_err(plain, s_ab)
     check(err == 0, "plain != kernel at the main batch")
+    bms, by = bound_ms(tuple(batch * v for v in ladder_ops()), batch * 96)
     print("phase 5 timing [%s]: create_shared_key B=%d kernel %.3f ms "
           "(%.1f ops/s, best of 3 x 3 after warm-up) | plain PyTorch %.3f ms "
-          "(%.1f ops/s, one call) | byte-equal"
+          "(%.1f ops/s, one call) | bound %.3f ms (%s) | byte-equal"
           % (card, batch, kernel_s * 1e3, batch / kernel_s, plain_s * 1e3,
-             batch / plain_s))
-    return {"launches": launches, "max_abs_err": err,
-            "ms": kernel_s * 1e3, "plain_ms": plain_s * 1e3}
+             batch / plain_s, bms, by))
+    return {"max_abs_err": err, "ms": kernel_s * 1e3,
+            "plain_ms": plain_s * 1e3, "bound_ms": bms, "bound_by": by}
+
+
+# ---------------------------------------------------------------------------
+# Phases 6-8: base multiply, SHA-512, keygen, sign
+# ---------------------------------------------------------------------------
+def phase_ed_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
+    from curve25519_tpu_torch.models import blinding
+    from curve25519_tpu_torch.ops import fold, sha512
+    from curve25519_tpu_torch.ops.cuda import edwards_kernel as ek
+    from curve25519_tpu_torch.ops.cuda import sign_kernel as sgk
+
+    errs = {k: 0 for k in ("basemult_kernel", "sha512_kernel",
+                           "keygen_kernel", "sign_kernel")}
+
+    def hold(name, got, want, what):
+        err = max_abs_err(got, want)
+        errs[name] = max(errs[name], err)
+        check(err == 0, "%s != plain: %s" % (name, what))
+
+    ctx = blinding.blinding_init(b"chip-smoke", device=dev)
+    zr = blinding.default_zr(device=dev)
+    sk = rand_bytes(rng, (lanes, 32), dev)
+
+    # B3: both folds, every mode, with and without the PE blinding add;
+    # ragged, rank-1 and broadcast calls on fold 8 pk
+    for nfolds in (8, 4):
+        cut = (fold.cut8_bytes if nfolds == 8 else fold.cut4_bytes)(sk)
+        for mode in ek.MODES:
+            for bp in (None, ctx["bp"]):
+                hold("basemult_kernel",
+                     ek.base_mult(cut, zr=ctx["zr"], bp=bp, mode=mode,
+                                  nfolds=nfolds),
+                     ek.base_mult_plain(cut, zr=ctx["zr"], bp=bp, mode=mode,
+                                        nfolds=nfolds),
+                     "fold %d %s bp=%s" % (nfolds, mode, bp is not None))
+    cut = fold.cut8_bytes(sk)
+    full = ek.base_mult(cut, zr=zr, mode="pk")
+    for n in (1, 127, 129, 1000):
+        hold("basemult_kernel", ek.base_mult(cut[:n], zr=zr, mode="pk"),
+             full[:n], "ragged %d" % n)
+    hold("basemult_kernel", ek.base_mult(cut[5], zr=zr, mode="pk"), full[5],
+         "rank-1")
+    hold("basemult_kernel", ek.base_mult(cut[:16], zr=ctx["zr"][None, :],
+                                         mode="pk"), full[:16], "broadcast zr")
+
+    # B4: the padding edges, a prefix, ragged and rank-1 calls
+    msg = rand_bytes(rng, (lanes, 240), dev)
+    lengths = torch.from_numpy(rng.integers(0, 241, lanes).astype(np.int32))
+    lengths[:len(SHA_LENGTHS)] = torch.tensor(SHA_LENGTHS)
+    lengths = lengths.to(dev)
+    prefix = rand_bytes(rng, (lanes, 32), dev)
+    for pre in (None, prefix):
+        got = sha512.sha512(msg, lengths, prefix=pre)
+        hold("sha512_kernel", got, sha512.sha512_plain(msg, lengths, prefix=pre),
+             "random lengths, prefix=%s" % (pre is not None))
+        for n in (1, 127, 129, 1000):
+            hold("sha512_kernel", sha512.sha512(
+                msg[:n], lengths[:n], prefix=None if pre is None else pre[:n]),
+                got[:n], "ragged %d" % n)
+    hold("sha512_kernel", sha512.sha512(msg[7, :int(lengths[7])]),
+         sha512.sha512_plain(msg[7:8], lengths[7:8])[0], "rank-1")
+    hold("sha512_kernel", sha512.sha512(msg[:64], lengths[:64],
+                                        prefix=prefix[0]),
+         sha512.sha512_plain(msg[:64], lengths[:64], prefix=prefix[0]),
+         "one prefix broadcast over 64 messages")
+
+    # B6: plain and blinded keygen; ragged, rank-1
+    pk = sgk.keygen(sk, zr=zr)
+    hold("keygen_kernel", pk, sgk.keygen_plain(sk, zr=zr), "random lanes")
+    hold("keygen_kernel", sgk.keygen(sk, zr=ctx["zr"], bl=ctx["bl"],
+                                     bp=ctx["bp"]), pk, "blinded")
+    for n in (1, 127, 129, 1000):
+        hold("keygen_kernel", sgk.keygen(sk[:n], zr=zr), pk[:n],
+             "ragged %d" % n)
+    hold("keygen_kernel", sgk.keygen(sk[9], zr=zr), pk[9], "rank-1")
+
+    # B7: random lengths up to 64 bytes, the fused cap (943), blinded,
+    # ragged, rank-1 and one key broadcast over many messages
+    priv = torch.cat([sk, pk], -1)
+    msg = rand_bytes(rng, (lanes, 943), dev)
+    for L in (64, 943):
+        ml = torch.from_numpy(rng.integers(0, L + 1, lanes).astype(np.int32))
+        ml[0], ml[1] = 0, L
+        ml = ml.to(dev)
+        m = msg[:, :L]
+        sig = sgk.sign_fused(priv, m, ml, zr=zr)
+        hold("sign_kernel", sig, sgk.sign_plain(priv, m, ml, zr=zr),
+             "%d-byte messages" % L)
+        hold("sign_kernel", sgk.sign_fused(priv, m, ml, zr=ctx["zr"],
+                                           bl=ctx["bl"], bp=ctx["bp"]), sig,
+             "%d-byte messages, blinded" % L)
+        for n in (1, 127, 129, 1000):
+            hold("sign_kernel", sgk.sign_fused(priv[:n], m[:n], ml[:n], zr=zr),
+                 sig[:n], "ragged %d" % n)
+    hold("sign_kernel", sgk.sign_fused(priv[3], m[3], ml[3], zr=zr), sig[3],
+         "rank-1")
+    hold("sign_kernel", sgk.sign_fused(priv[0], m[:16], ml[:16], zr=zr),
+         sgk.sign_plain(priv[0], m[:16], ml[:16], zr=zr), "broadcast key")
+    check(sgk.max_fused_msg_len(943) and not sgk.max_fused_msg_len(944),
+          "the fused cap is not at 943/944 bytes")
+    # 944 bytes: one past the cap, the composition of the SHA-512 and
+    # base-multiply kernels
+    m944 = rand_bytes(rng, (256, 944), dev)
+    n944 = torch.full((256,), 944, dtype=torch.int32, device=dev)
+    hold("sign_kernel", sgk.sign_composed(priv[:256], m944, n944, zr=zr),
+         sgk.sign_plain(priv[:256], m944, n944, zr=zr), "944-byte messages")
+    torch.cuda.synchronize()
+    print("phase 6 kernels vs plain: %d random lanes; base multiply fold 8 "
+          "and 4 x 4 modes x (no BP, BP); SHA-512 random lengths and "
+          "padding edges, prefix; keygen and sign (64 and 943 bytes fused, "
+          "944 composed) plain and blinded with "
+          "blinding_init(b'chip-smoke'); ragged 1/127/129/1000, rank-1, "
+          "broadcast: byte-equal (max_abs_err %s)"
+          % (lanes, errs))
+    return errs
+
+
+def phase_ed_known_answers(dev, rng):
+    from curve25519_tpu_torch.models import ed25519
+    from curve25519_tpu_torch.ops import sha512
+
+    sks = torch.stack([hex_bytes(v[0], dev) for v in ED_VECS])
+    pk, priv = ed25519.create_keypair(sks)
+    for i, v in enumerate(ED_VECS):
+        check(row_bytes(pk[i]).hex() == v[1], "RFC 8032 TEST %d pk" % (i + 1))
+    msg = torch.zeros((3, 8), dtype=torch.uint8, device=dev)
+    lengths = []
+    for i, v in enumerate(ED_VECS):
+        b = bytes.fromhex(v[2])
+        msg[i, :len(b)] = torch.tensor(list(b), dtype=torch.uint8)
+        lengths.append(len(b))
+    sig = ed25519.sign(priv, msg, torch.tensor(lengths, dtype=torch.int32,
+                                               device=dev))
+    for i, v in enumerate(ED_VECS):
+        check(row_bytes(sig[i]).hex() == v[3], "RFC 8032 TEST %d sig" % (i + 1))
+
+    data = rng.integers(0, 256, (len(SHA_LENGTHS), 240), np.uint8)
+    got = sha512.sha512(torch.from_numpy(data).to(dev),
+                        torch.tensor(SHA_LENGTHS, dtype=torch.int32,
+                                     device=dev))
+    for i, n in enumerate(SHA_LENGTHS):
+        check(row_bytes(got[i]) == hashlib.sha512(data[i, :n].tobytes())
+              .digest(), "SHA-512 of %d bytes != hashlib" % n)
+
+    seeds = rng.integers(0, 256, (ORACLE_LANES, 32), np.uint8)
+    pk, priv = ed25519.create_keypair(torch.from_numpy(seeds).to(dev))
+    for L in (64, 3000):
+        m = rng.integers(0, 256, (ORACLE_LANES, L), np.uint8)
+        n = rng.integers(0, L + 1, ORACLE_LANES).astype(np.int32)
+        n[0] = L
+        sig = ed25519.sign(priv, torch.from_numpy(m).to(dev),
+                           torch.from_numpy(n).to(dev))
+        for i in range(ORACLE_LANES):
+            check(row_bytes(pk[i]) == oracle_ed25519_pk(seeds[i].tobytes()),
+                  "pk lane %d disagrees with the Python oracle" % i)
+            check(row_bytes(sig[i]) == oracle_ed25519_sign(
+                seeds[i].tobytes(), row_bytes(pk[i]), m[i, :n[i]].tobytes()),
+                "%d-byte sign lane %d disagrees with the Python oracle"
+                % (L, i))
+    print("phase 7 Ed25519 known answers: RFC 8032 TEST 1-3 (pk, sig), "
+          "SHA-512 of %s bytes vs hashlib, %d random lanes (64- and up to "
+          "3,000-byte messages) vs the Python-integer Ed25519: ok"
+          % ("/".join(map(str, SHA_LENGTHS)), ORACLE_LANES))
+
+
+def phase_ed_main(dev, rng, card, counts, batch=MAIN_BATCH):
+    from curve25519_tpu_torch.models import blinding, ed25519, x25519
+    from curve25519_tpu_torch.ops import fold, sha512
+    from curve25519_tpu_torch.ops.cuda import (
+        edwards_kernel as ek, sha512_kernel as shk, sign_kernel as sgk,
+    )
+    from curve25519_tpu_torch.utils.profiling import bench
+
+    seeds = rand_bytes(rng, (batch, 32), dev)
+    msg = rand_bytes(rng, (batch, 64), dev)
+    ctx = blinding.blinding_init(b"chip-smoke", device=dev)
+    lines = []
+
+    # keygen
+    (pk, priv), wall, got = counts.drive(ed25519.create_keypair, seeds)
+    check(got["keygen_kernel"] == 1, "keygen launched %s" % got)
+    for i in (0, batch // 2, batch - 1):
+        check(row_bytes(pk[i]) == oracle_ed25519_pk(row_bytes(seeds[i])),
+              "main-path pk lane %d disagrees with the Python oracle" % i)
+    lines.append("create_keypair %.3f s (%s)" % (wall, got["keygen_kernel"]))
+
+    # sign, plain and blinded
+    sig, wall, got = counts.drive(ed25519.sign, priv, msg)
+    check(got["sign_kernel"] == 1, "sign launched %s" % got)
+    for i in (0, batch - 1):
+        check(row_bytes(sig[i]) == oracle_ed25519_sign(
+            row_bytes(seeds[i]), row_bytes(pk[i]), row_bytes(msg[i])),
+            "main-path signature lane %d disagrees with the Python oracle" % i)
+    lines.append("sign %.3f s (%d)" % (wall, got["sign_kernel"]))
+    sig_bl, wall, got = counts.drive(
+        lambda: ed25519.sign(priv, msg, blinding=ctx))
+    check(got["sign_kernel"] == 1 and torch.equal(sig_bl, sig),
+          "the blinded sign changed a signature or did not launch")
+    lines.append("blinded sign %.3f s (%d)" % (wall, got["sign_kernel"]))
+
+    # the fold-8 and fold-4 X25519 public key against the ladder, all lanes
+    ladder_pk = x25519.calculate_public_key(seeds)
+    for nfolds in (8, 4):
+        fast, wall, got = counts.drive(
+            lambda: x25519.calculate_public_key_fast(seeds, nfolds=nfolds))
+        check(got["basemult_kernel"] == 1, "fast pk launched %s" % got)
+        check(torch.equal(fast, ladder_pk), "fold-%d public key != ladder on "
+              "%d of %d lanes" % (nfolds, int((fast != ladder_pk).any(-1)
+                                              .sum()), batch))
+        lines.append("calculate_public_key_fast(nfolds=%d) %.3f s (%d), "
+                     "== ladder on all lanes" % (nfolds, wall,
+                                                 got["basemult_kernel"]))
+
+    # sha512 of the 64-byte messages
+    digest, wall, got = counts.drive(sha512.sha512, msg)
+    check(got["sha512_kernel"] == 1, "sha512 launched %s" % got)
+    for i in (0, batch - 1):
+        check(row_bytes(digest[i]) == hashlib.sha512(row_bytes(msg[i]))
+              .digest(), "main-path digest lane %d != hashlib" % i)
+    lines.append("sha512 %.3f s (%d)" % (wall, got["sha512_kernel"]))
+
+    # the long-message sign: SHA-512 of several blocks per lane, each lane
+    # its own count, through the SHA-512 and base-multiply kernels
+    long = rand_bytes(rng, (LONG_LANES, 4096), dev)
+    n_long = torch.from_numpy(rng.integers(944, 4097, LONG_LANES)
+                              .astype(np.int32)).to(dev)
+    sig_long, wall, got = counts.drive(ed25519.sign, priv[:LONG_LANES], long,
+                                       n_long)
+    check(got["sha512_kernel"] == 3 and got["basemult_kernel"] == 1
+          and got["sign_kernel"] == 0, "long sign launched %s" % got)
+    check(torch.equal(sig_long, sgk.sign_plain(
+        priv[:LONG_LANES], long, n_long, zr=blinding.default_zr(device=dev))),
+        "long-message sign != plain")
+    for i in (0, LONG_LANES - 1):
+        check(row_bytes(sig_long[i]) == oracle_ed25519_sign(
+            row_bytes(seeds[i]), row_bytes(pk[i]),
+            row_bytes(long[i, :int(n_long[i])])),
+            "long-message lane %d disagrees with the Python oracle" % i)
+    lines.append("long sign %d lanes of 944-4,096 bytes %.3f s (sha512 %d, "
+                 "basemult %d)" % (LONG_LANES, wall, got["sha512_kernel"],
+                                   got["basemult_kernel"]))
+    print("phase 8 Ed25519 main paths, B = %d (launches): %s"
+          % (batch, "; ".join(lines)))
+
+    # timing: each kernel's wrapper on the inputs of the path, best of 3 x 3
+    # after a warm-up, against one call of its plain version
+    zr = blinding.default_zr(device=dev)
+    cut8, cut4 = fold.cut8_bytes(seeds), fold.cut4_bytes(seeds)
+    words, nblocks, _ = sha512.pack_words(
+        msg, torch.full((batch,), 64, dtype=torch.int32, device=dev))
+    ml = torch.full((batch,), 64, dtype=torch.int32, device=dev)
+    w3_blocks = sha512.nblocks_static(64 + 32) + sha512.nblocks_static(64 + 64)
+    cases = {
+        "basemult_kernel": (
+            lambda c: ek.base_mult(c, mode="u_bytes"),
+            lambda c: ek.base_mult_plain(c, mode="u_bytes"), (cut8,),
+            basemult_ops(8), batch * (128 + 32)),
+        "basemult_fold4": (
+            lambda c: ek.base_mult(c, mode="u_bytes", nfolds=4),
+            lambda c: ek.base_mult_plain(c, mode="u_bytes", nfolds=4), (cut4,),
+            basemult_ops(4), batch * (256 + 32)),
+        "sha512_kernel": (shk.sha512_blocks, shk.sha512_blocks_plain,
+                          (words, nblocks), (0, SHA_BLOCK_ALU),
+                          batch * (128 + 4 + 64)),
+        "keygen_kernel": (
+            lambda s: sgk.keygen(s, zr=zr),
+            lambda s: sgk.keygen_plain(s, zr=zr), (seeds,), keygen_ops(),
+            batch * (32 + 32)),
+        "sign_kernel": (
+            lambda p, m, n: sgk.sign_fused(p, m, n, zr=zr),
+            lambda p, m, n: sgk.sign_plain(p, m, n, zr=zr), (priv, msg, ml),
+            sign_ops(w3_blocks), batch * (64 + 64 + 4 + 64)),
+    }
+    rows = {}
+    for name, (kernel_fn, plain_fn, args, ops, nbytes) in cases.items():
+        kernel_s = bench(kernel_fn, *args, reps=3, rounds=3)
+        small = tuple(a[:8] for a in args)
+        plain_fn(*small)                                 # warm the plain path
+        plain_s, plain = timed_once(plain_fn, *args)
+        err = max_abs_err(kernel_fn(*args), plain)
+        check(err == 0, "%s != plain at the main batch" % name)
+        bms, by = bound_ms(tuple(batch * v for v in ops), nbytes)
+        rows[name] = {"max_abs_err": err, "ms": kernel_s * 1e3,
+                      "plain_ms": plain_s * 1e3, "bound_ms": bms,
+                      "bound_by": by}
+        print("phase 8 timing [%s]: %s B=%d kernel %.3f ms (best of 3 x 3 "
+              "after warm-up) | plain PyTorch %.3f ms (one call) | bound "
+              "%.3f ms (%s) | byte-equal"
+              % (card, name, batch, kernel_s * 1e3, plain_s * 1e3, bms, by))
+    for label, fn, args in (
+            ("create_keypair", ed25519.create_keypair, (seeds,)),
+            ("sign", ed25519.sign, (priv, msg)),
+            ("calculate_public_key_fast", x25519.calculate_public_key_fast,
+             (seeds,)),
+            ("sha512", sha512.sha512, (msg,))):
+        print("phase 8 profile [%s]: %s B=%d, 3 calls: %s"
+              % (card, label, batch, profile(fn, *args)))
+    return rows
+
+
+def profile(fn, *args, calls=3):
+    """Device time by kernel name over `calls` calls (torch.profiler), and
+    the share of the window's host wall time that the device was busy."""
+    from torch.profiler import ProfilerActivity
+    fn(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per = [(e.key, e.device_time_total) for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.device_time_total > 0]
+    busy = sum(t for _, t in per) / 1e6
+    if not per:
+        return "no device time in the trace (not measured)"
+    top = sorted(per, key=lambda kv: -kv[1])[:4]
+    return "%s | device busy %.1f%% of %.3f ms host wall" % (
+        ", ".join("%s %.3f ms/call" % (k[:40], t / 1e3 / calls)
+                  for k, t in top), 100 * busy / wall, wall * 1e3)
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "CUDA card")
     root = Path(__file__).resolve().parent
-    check((root / KERNEL_SOURCE).exists(),
-          "%s not found next to this script: run it from a checkout"
-          % KERNEL_SOURCE)
+    for src, _ in KERNELS.values():
+        check((root / CSRC / src).exists(),
+              "%s%s not found next to this script: run it from a checkout"
+              % (CSRC, src))
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
 
     card = phase_device()
-    phase_build()
-    check_err = phase_kernel_vs_plain(dev, rng)
-    phase_known_answers(dev, rng)
-    main_row = phase_main(dev, rng, card)
+    build_info = phase_build()
+    counts = Counts()
+    ladder_err = phase_ladder_vs_plain(dev, rng)
+    phase_x25519_known_answers(dev, rng)
+    rows = {"x25519_ladder_kernel": phase_x25519_main(dev, rng, card, counts)}
+    errs = phase_ed_kernels_vs_plain(dev, rng)
+    phase_ed_known_answers(dev, rng)
+    rows.update(phase_ed_main(dev, rng, card, counts))
     check("jax" not in sys.modules and "curve25519_tpu" not in sys.modules,
           "the port imported jax or the JAX package")
 
-    kernel = {"name": "x25519_ladder_kernel", "route": "cuda",
-              "source": KERNEL_SOURCE, "replaces": REPLACES, **main_row}
-    kernel["max_abs_err"] = max(kernel["max_abs_err"], check_err)
-    print(json.dumps({"kernels": [kernel]}))
+    rows["x25519_ladder_kernel"]["max_abs_err"] = max(
+        rows["x25519_ladder_kernel"]["max_abs_err"], ladder_err)
+    kernels = []
+    for name, (src, replaces) in KERNELS.items():
+        row = rows[name]
+        check(counts.total[name] > 0, "%s was launched 0 times on the main "
+              "paths" % name)
+        kernels.append({
+            "name": name, "route": "cuda", "source": CSRC + src,
+            "replaces": replaces, "launches": counts.total[name],
+            "max_abs_err": max(row["max_abs_err"], errs.get(name, 0)),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None,
+            "registers": max(v["registers"] for k, v in build_info.items()
+                             if k.startswith(name.split("_kernel")[0])),
+        })
+    print("chip_smoke wall time: %.1f s" % (time.perf_counter() - t_start))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,18 +2,23 @@
 curve25519_tpu/models/x25519.py). Batch axes scale throughput: one call is
 many DH operations. Secret keys are never modified; clamping is internal.
 
-Both functions go through the routing seam in
-ops/cuda/ladder_kernel.point_multiply_cuda: keys on a CUDA device run the
-CUDA ladder kernel, keys on the CPU its plain version
-(models/montgomery.point_multiply).
+The device rule of ops/cuda applies: a tensor keeps its device, anything
+else goes to `device=` or to the card. On a CUDA device the ladder routes
+run the CUDA ladder kernel (ops/cuda/ladder_kernel.py) and
+`calculate_public_key_fast` the base-multiply kernel
+(ops/cuda/edwards_kernel.py); on the CPU their plain versions run.
 """
 
 import torch
 
 from curve25519_tpu_torch.config import MONT_BASE_U
-from curve25519_tpu_torch.ops.cuda import ladder_kernel
+from curve25519_tpu_torch.ops import codec, fold
+from curve25519_tpu_torch.ops.cuda import (
+    as_bytes, edwards_kernel, ladder_kernel, pick_device,
+)
 
-__all__ = ["calculate_public_key", "create_shared_key"]
+__all__ = ["calculate_public_key", "calculate_public_key_fast",
+           "create_shared_key"]
 
 
 def _base_u(shape, device):
@@ -22,14 +27,28 @@ def _base_u(shape, device):
     return b
 
 
-def calculate_public_key(sk, zr=None):
+def calculate_public_key(sk, zr=None, device=None):
     """pk = clamp(sk) * G via the Montgomery ladder from u = 9."""
-    if not isinstance(sk, torch.Tensor):
-        sk = torch.as_tensor(sk, dtype=torch.uint8)
+    sk = as_bytes(sk, "sk", 32, pick_device(sk, zr, device=device))
     return ladder_kernel.point_multiply_cuda(
         _base_u(sk.shape[:-1], sk.device), sk, zr=zr)
 
 
-def create_shared_key(peer_pk, sk, zr=None):
+def calculate_public_key_fast(sk, zr=None, nfolds=8, device=None):
+    """pk via the folding base-point multiply on the Edwards curve and the
+    birational map u = (Z+Y)/(Z-Y). nfolds=8 uses the 256-entry folding
+    table (32 steps), nfolds=4 the 16-entry one (64 steps). Same bytes as
+    calculate_public_key."""
+    if nfolds not in (4, 8):
+        raise ValueError("nfolds must be 8 or 4, got %r" % (nfolds,))
+    sk = codec.clamp(as_bytes(sk, "sk", 32, pick_device(sk, zr,
+                                                        device=device)))
+    cut = (fold.cut8_bytes if nfolds == 8 else fold.cut4_bytes)(sk)
+    return edwards_kernel.base_mult(cut, zr=zr, mode="u_bytes",
+                                    nfolds=nfolds)
+
+
+def create_shared_key(peer_pk, sk, zr=None, device=None):
     """shared = clamp(sk) * peer_pk."""
-    return ladder_kernel.point_multiply_cuda(peer_pk, sk, zr=zr)
+    return ladder_kernel.point_multiply_cuda(peer_pk, sk, zr=zr,
+                                             device=device)

@@ -2,14 +2,16 @@
 curve25519_tpu/native/bindings.py: a plain C interface, compiled on demand,
 loaded with ctypes).
 
-- ``load_cuda()`` compiles ``csrc/ladder.cu`` with nvcc for sm_90a into
+- ``load_cuda(name)`` compiles one library (``ladder``, ``basemult``,
+  ``sha512`` or ``sign``: ``csrc/<name>.cu``) with nvcc for sm_90a into
   ``_build/`` (git-ignored) the first time it is called, and again whenever a
-  source is newer than the library. ``build_cuda()`` compiles anew and
-  returns the build seconds and ptxas's report (registers, spills); the
-  full compiler output is kept in ``_build/nvcc.log``.
-- ``build_host(out_dir)`` compiles the same sources with g++ into a library
-  whose ``x25519_ladder_host`` / ``fe25519_op_host`` run the per-lane kernel
-  code on the CPU; the CPU tests load it with ``load_host``.
+  source is newer than the library. ``build_cuda()`` compiles every library
+  anew, one nvcc process per source, all started together, and returns per
+  library its build seconds and, per kernel, ptxas's registers, spills and
+  stack; the compiler output is kept in ``_build/<name>.log``.
+- ``build_host(out_dir)`` compiles all sources with g++ into one library
+  whose ``*_host`` entries run the per-lane kernel code on the CPU; the CPU
+  tests load it with ``load_host``.
 
 Nothing is compiled at import time.
 """
@@ -23,13 +25,33 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["build_cuda", "load_cuda", "build_host", "load_host"]
+import torch
+
+__all__ = ["LIBRARIES", "build_cuda", "load_cuda", "launch", "build_host",
+           "load_host"]
 
 _DIR = Path(__file__).resolve().parent
 CSRC = _DIR / "csrc"
 BUILD_DIR = _DIR / "_build"
-_SOURCES = (CSRC / "ladder.cu", CSRC / "fe25519.cuh")
-_CUDA_SO = BUILD_DIR / "libladder_cuda.so"
+
+_vp, _i64, _int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+
+# library -> (its kernels, as named in ptxas's report; its launch entries
+# with their argument types)
+LIBRARIES = {
+    "ladder": (("x25519_ladder_kernel",),
+               {"x25519_ladder_launch": [_vp, _vp, _vp, _vp, _i64, _vp]}),
+    "basemult": (("basemult_fold8_kernel", "basemult_fold4_kernel"),
+                 {"basemult_launch": [_vp, _vp, _vp, _i64, _vp, _i64, _vp,
+                                      _int, _int, _i64, _vp]}),
+    "sha512": (("sha512_kernel",),
+               {"sha512_launch": [_vp, _vp, _vp, _i64, _i64, _vp]}),
+    "sign": (("keygen_kernel", "sign_kernel"),
+             {"keygen_launch": [_vp, _vp, _vp, _i64, _vp, _i64, _vp, _i64,
+                                _vp, _i64, _vp],
+              "sign_launch": [_vp, _vp, _vp, _i64, _vp, _vp, _i64, _vp, _vp,
+                              _i64, _vp, _i64, _vp, _i64, _vp, _i64, _vp]}),
+}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -49,70 +71,111 @@ def _nvcc():
     return found
 
 
+def _so(name):
+    return BUILD_DIR / ("lib%s_cuda.so" % name)
+
+
 def _stale(lib):
-    return (not lib.exists() or
-            lib.stat().st_mtime < max(s.stat().st_mtime for s in _SOURCES))
+    newest = max(p.stat().st_mtime for p in CSRC.iterdir())
+    return not lib.exists() or lib.stat().st_mtime < newest
 
 
-def _parse_ptxas(log):
-    """Registers per thread, spill bytes and stack frame of the ladder kernel
-    from nvcc's -Xptxas -v report."""
+def _parse_ptxas(log, kernels):
+    """Per kernel of `kernels`: registers per thread and spill and stack
+    bytes from nvcc's -Xptxas -v report (one chunk per entry function)."""
     info = {}
-    m = re.search(r"Function properties for \S*x25519_ladder_kernel\S*\s*\n"
-                  r"\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                  r"(\d+) bytes spill loads", log)
-    if m:
-        info.update(stack_bytes=int(m.group(1)),
-                    spill_store_bytes=int(m.group(2)),
-                    spill_load_bytes=int(m.group(3)))
-    m = re.search(r"Compiling entry function '\S*x25519_ladder_kernel\S*'"
-                  r"[\s\S]*?Used (\d+) registers", log)
-    if m:
-        info["registers"] = int(m.group(1))
+    for chunk in log.split("Compiling entry function '")[1:]:
+        entry = chunk.split("'", 1)[0]
+        name = next((k for k in kernels if k in entry), None)
+        if name is None:
+            continue
+        rec = {}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", chunk)
+        if m:
+            rec.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", chunk)
+        if m:
+            rec["registers"] = int(m.group(1))
+        info[name] = rec
     return info
 
 
-def build_cuda():
-    """Compile ladder.cu for sm_90a into _build/. Returns the build seconds
-    and, from ptxas's report, the kernel's registers per thread and its
-    spill and stack bytes."""
+def build_cuda(names=None):
+    """Compile the named libraries (default: all) for sm_90a into _build/,
+    one nvcc process per source, all at once. Returns {"wall_seconds": s,
+    name: {"build_seconds": s, "kernels": {kernel: ptxas info}}}."""
+    names = list(LIBRARIES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _CUDA_SO.with_suffix(".so.tmp%d" % os.getpid())
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCES[0])]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    (BUILD_DIR / "nvcc.log").write_text(log)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s" % (proc.returncode, log))
-    os.replace(tmp, _CUDA_SO)
-    return {"build_seconds": seconds, **_parse_ptxas(log)}
+    running = {}
+    for name in names:
+        tmp = _so(name).with_suffix(".so.tmp%d" % os.getpid())
+        log = open(BUILD_DIR / (name + ".log"), "w")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / (name + ".cu"))]
+        running[name] = (subprocess.Popen(cmd, stdout=log,
+                                          stderr=subprocess.STDOUT), tmp, log)
+    report, failed = {}, []
+    while running:
+        time.sleep(0.05)
+        for name, (proc, tmp, log) in list(running.items()):
+            if proc.poll() is None:
+                continue
+            seconds = time.perf_counter() - t0
+            del running[name]
+            log.close()
+            text = (BUILD_DIR / (name + ".log")).read_text()
+            if proc.returncode != 0:
+                failed.append("%s (%d):\n%s" % (name, proc.returncode, text))
+                continue
+            os.replace(tmp, _so(name))
+            report[name] = {"build_seconds": seconds,
+                            "kernels": _parse_ptxas(text, LIBRARIES[name][0])}
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    report["wall_seconds"] = time.perf_counter() - t0
+    return report
 
 
 @functools.cache
-def load_cuda():
-    """Load (building if missing or stale) the CUDA library; returns the
+def load_cuda(name):
+    """Load (building if missing or stale) one CUDA library; returns the
     ctypes CDLL with its argument types declared."""
-    if _stale(_CUDA_SO):
-        build_cuda()
-    lib = ctypes.CDLL(str(_CUDA_SO))
-    vp = ctypes.c_void_p
-    lib.x25519_ladder_launch.argtypes = [vp, vp, vp, vp, ctypes.c_int64, vp]
-    lib.x25519_ladder_launch.restype = ctypes.c_int
-    lib.x25519_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.x25519_cuda_error_string.restype = ctypes.c_char_p
+    if _stale(_so(name)):
+        build_cuda([name])
+    lib = ctypes.CDLL(str(_so(name)))
+    for fn, argtypes in LIBRARIES[name][1].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def launch(name, fn, device, *args):
+    """Call launch entry `fn` of library `name` with `args` and the current
+    stream of `device` appended; raises on a nonzero return."""
+    lib = load_cuda(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError("%s failed: %s"
+                           % (fn, lib.cuda_error_string(rc).decode()))
+
+
 def build_host(out_dir):
-    """Compile the kernel sources with g++ into out_dir; returns the path of
+    """Compile all kernel sources with g++ into out_dir; returns the path of
     the shared library."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found")
-    so = Path(out_dir) / "libladder_host.so"
-    subprocess.run([gxx, *GXX_FLAGS, "-o", str(so), str(_SOURCES[0])],
+    so = Path(out_dir) / "libport_host.so"
+    sources = [str(CSRC / (name + ".cu")) for name in LIBRARIES]
+    subprocess.run([gxx, *GXX_FLAGS, "-o", str(so), *sources],
                    check=True, capture_output=True)
     return so
 
@@ -120,9 +183,21 @@ def build_host(out_dir):
 def load_host(so_path):
     """ctypes CDLL of a library made by build_host, argument types declared."""
     lib = ctypes.CDLL(str(so_path))
-    vp = ctypes.c_void_p
-    lib.x25519_ladder_host.argtypes = [vp, vp, vp, vp, ctypes.c_int64]
+    lib.x25519_ladder_host.argtypes = [_vp, _vp, _vp, _vp, _i64]
     lib.x25519_ladder_host.restype = None
-    lib.fe25519_op_host.argtypes = [ctypes.c_int, vp, vp, vp, ctypes.c_int64]
+    lib.fe25519_op_host.argtypes = [_int, _vp, _vp, _vp, _i64]
     lib.fe25519_op_host.restype = ctypes.c_int
+    lib.sha512_host.argtypes = [_vp, _vp, _vp, _i64, _i64]
+    lib.sha512_host.restype = None
+    lib.basemult_host.argtypes = [_vp, _vp, _vp, _i64, _vp, _i64, _vp, _int,
+                                  _int, _i64]
+    lib.basemult_host.restype = ctypes.c_int
+    lib.keygen_host.argtypes = [_vp, _vp, _vp, _i64, _vp, _i64, _vp, _i64,
+                                _vp, _i64]
+    lib.keygen_host.restype = None
+    lib.sign_host.argtypes = [_vp, _vp, _vp, _i64, _vp, _vp, _i64, _vp, _vp,
+                              _i64, _vp, _i64, _vp, _i64, _vp, _i64]
+    lib.sign_host.restype = None
+    lib.sc25519_op_host.argtypes = [_int, _vp, _vp, _vp, _vp, _i64]
+    lib.sc25519_op_host.restype = ctypes.c_int
     return lib

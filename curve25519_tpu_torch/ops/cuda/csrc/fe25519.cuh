@@ -3,7 +3,8 @@
 //
 // Replaces the in-kernel field core of the TPU package,
 // curve25519_tpu/ops/pallas/fe_tile.py (t_add, t_sub, t_neg, t_mul, t_sqr,
-// t_mul_small_add, t_select, t_inv, t_canon, t_to_bytes), and the byte->limb
+// t_mul_small_add, t_select, t_inv, t_canon, t_norm_to_bytes, t_to_bytes,
+// t_pack_point), and the byte->limb
 // decode sc_tile.limbs_from_byte_rows. Where those work on [20, 8, 128] tiles
 // of 1024 lanes, every function here works on the 20 limbs of ONE lane, held
 // in registers: the CUDA kernel runs one lane per thread.
@@ -210,10 +211,10 @@ FE_HD Fe canon(const Fe& x) {
   return select(uc + 1, ud, td);
 }
 
-// Weak limbs -> canonical little-endian bytes (values in [0, 256)). Byte j
-// straddles limbs 8j/13 and 8j/13 + 1 (ops/fe.py norm_to_bytes).
-FE_HD void to_bytes(int32_t (&out)[32], const Fe& x) {
-  const Fe d = canon(x);
+// Normalized limbs (digits in [0, 2^13), value < 2^256) -> little-endian
+// bytes (values in [0, 256)). Byte j straddles limbs 8j/13 and 8j/13 + 1
+// (ops/fe.py norm_to_bytes, fe_tile.t_norm_to_bytes).
+FE_HD void norm_to_bytes(int32_t (&out)[32], const Fe& d) {
 #pragma unroll
   for (int j = 0; j < 32; j++) {
     const int i = (8 * j) / BITS;
@@ -221,6 +222,17 @@ FE_HD void to_bytes(int32_t (&out)[32], const Fe& x) {
     const int32_t next = i + 1 < NLIMBS ? d.v[i + 1] : 0;
     out[j] = ((d.v[i] >> s) | (next << (BITS - s))) & 0xFF;
   }
+}
+
+// Weak limbs -> canonical little-endian bytes (ops/fe.py to_bytes).
+FE_HD void to_bytes(int32_t (&out)[32], const Fe& x) { norm_to_bytes(out, canon(x)); }
+
+// Affine (x, y) -> compressed Edwards point: enc(y) with the parity of x in
+// bit 7 of byte 31 (fe_tile.t_pack_point, the reference ed25519_PackPoint).
+FE_HD void pack_point(int32_t (&out)[32], const Fe& x, const Fe& y) {
+  const Fe xc = canon(x);
+  to_bytes(out, y);
+  out[31] = (out[31] & 0x7F) | ((xc.v[0] & 1) << 7);
 }
 
 // 32 little-endian bytes (already widened to int32) -> normalized limbs, NOT

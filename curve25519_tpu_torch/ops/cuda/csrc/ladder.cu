@@ -125,7 +125,7 @@ extern "C" int x25519_ladder_launch(void* out, const void* u, const void* k,
   return (int)cudaGetLastError();
 }
 
-extern "C" const char* x25519_cuda_error_string(int code) {
+extern "C" const char* cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 

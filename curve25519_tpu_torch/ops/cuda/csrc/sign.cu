@@ -1,0 +1,284 @@
+// sign.cu -- fused Ed25519 keygen and sign, one lane per thread (CUDA,
+// sm_90a).
+//
+// Replaces the TPU kernels of curve25519_tpu/ops/pallas/sign_kernel.py:
+// - `_keygen_kernel` (keygen_tiled / keygen_fused_pallas): SHA512(seed) ->
+//   clamp -> 8-fold cut -> folding base multiply -> compressed pk, with the
+//   blinded form (a + bl)*G + BP when bl and bp are given;
+// - `_sign_kernel` (sign_tiled / sign_fused_pallas): the whole signature in
+//   one launch: md = SHA512(seed); r = SHA512(prefix || m) mod l;
+//   R = r*G (blinded: (r + bl)*G + BP); h = SHA512(R || pk || m) mod l;
+//   S = h*a + r mod l.
+// As on the TPU, the message words of the two message hashes are packed by
+// the wrapper with a zero hole at the front of block 0 (32 bytes for the
+// prefix, 64 for R || pk; the FIPS padding depends only on the total
+// length), and the lane splices its in-kernel values into that hole: the
+// prefix half of md, enc(R) and the pk. The mod-l code is sc25519.cuh
+// (sc_tile), the point code edwards25519.cuh.
+//
+// What bounds it on this card: int32 issue, as for basemult.cu (the base
+// multiply and its constant-time table reads are ~95% of a lane's work; the
+// three SHA-512 runs and the mod-l steps the rest). What the design does
+// about it: one SHA compression function and one rolled loop over blocks
+// and over fold steps keep the code and the registers small; the 8-fold
+// digits live in a per-lane array indexed by the step counter only.
+//
+// Built by curve25519_tpu_torch/ops/cuda/build.py: with nvcc into a shared
+// library that ctypes loads (keygen_launch, sign_launch), and with g++ for
+// the CPU tests (keygen_host, sign_host, sc25519_op_host).
+
+#include "edwards25519.cuh"
+#include "sc25519.cuh"
+#include "sha512.cuh"
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
+
+using namespace ed25519;
+
+// SHA-512 state of a 32-byte seed: one block built in registers.
+FE_HD void seed_hash(uint64_t (&st)[8], const uint8_t* seed) {
+  uint64_t w[16];
+#pragma unroll
+  for (int t = 0; t < 4; t++) w[t] = sha512::be_word(seed + 8 * t);
+  w[4] = 0x8000000000000000ULL;
+#pragma unroll
+  for (int t = 5; t < 15; t++) w[t] = 0;
+  w[15] = 256;  // bit length
+  sha512::init(st);
+  sha512::compress(st, w);
+}
+
+// a = clamp(md[0:32]) as normalized limbs.
+FE_HD Fe secret_scalar(const uint64_t (&md)[8]) {
+  int32_t by[64], a[32];
+  sha512::digest_bytes(by, md);
+#pragma unroll
+  for (int j = 0; j < 32; j++) a[j] = by[j];
+  sc25519::clamp(a);
+  return from_bytes(a);
+}
+
+// Big-endian 64-bit word from 8 byte values.
+FE_HD uint64_t be_word_i32(const int32_t* b) {
+  uint64_t v = 0;
+#pragma unroll
+  for (int k = 0; k < 8; k++) v = (v << 8) | (uint32_t)b[k];
+  return v;
+}
+
+// (scalar + bl)*G + BP, or scalar*G without blinding; compressed bytes.
+FE_HD void blinded_base_pk(int32_t (&enc)[32], const Fe& scalar, const int32_t* zr,
+                           const int32_t* bl, const int32_t* bp, const uint32_t* tbl) {
+  int32_t dig[32];
+  sc25519::cut8(dig, bl ? sc25519::add(scalar, load_fe(bl)) : scalar);
+  Ext s = base_mult<256, 32>(dig, zr ? load_fe(zr) : one(), tbl);
+  if (bp) s = add_pe(s, bp);
+  pack_ext(enc, s);
+}
+
+FE_HD void keygen_lane(uint8_t* pk, const uint8_t* seed, const int32_t* zr,
+                       const int32_t* bl, const int32_t* bp, const uint32_t* tbl) {
+  uint64_t md[8];
+  seed_hash(md, seed);
+  Fe a = secret_scalar(md);
+  if (bl) a = sc25519::mod(a);  // the blinded route adds bl to a mod l
+  int32_t enc[32];
+  blinded_base_pk(enc, a, zr, bl, bp, tbl);
+#pragma unroll
+  for (int j = 0; j < 32; j++) pk[j] = (uint8_t)enc[j];
+}
+
+// priv: 64 bytes (seed || pk); w2, w3: the lane's padded word rows of
+// (32-byte hole || m) and (64-byte hole || m) with nb2, nb3 active blocks.
+FE_HD void sign_lane(uint8_t* sig, const uint8_t* priv, const int32_t* w2, int32_t nb2,
+                     const int32_t* w3, int32_t nb3, const int32_t* zr, const int32_t* bl,
+                     const int32_t* bp, const uint32_t* tbl) {
+  uint64_t md[8], st[8], w[16];
+  int32_t by[64];
+  seed_hash(md, priv);
+
+  // r = SHA512(prefix || m) mod l, prefix = md bytes 32..63 = md[4..7]
+  sha512::init(st);
+#pragma unroll 1
+  for (int32_t b = 0; b < nb2; b++) {
+    sha512::load_block(w, w2, b);
+    if (b == 0) {
+#pragma unroll
+      for (int t = 0; t < 4; t++) w[t] = md[4 + t];
+    }
+    sha512::compress(st, w);
+  }
+  sha512::digest_bytes(by, st);
+  const Fe r = sc25519::from_digest(by);
+
+  int32_t R[32];
+  blinded_base_pk(R, r, zr, bl, bp, tbl);
+
+  // h = SHA512(enc(R) || pk || m) mod l
+  sha512::init(st);
+#pragma unroll 1
+  for (int32_t b = 0; b < nb3; b++) {
+    sha512::load_block(w, w3, b);
+    if (b == 0) {
+#pragma unroll
+      for (int t = 0; t < 4; t++) {
+        w[t] = be_word_i32(R + 8 * t);
+        w[4 + t] = sha512::be_word(priv + 32 + 8 * t);
+      }
+    }
+    sha512::compress(st, w);
+  }
+  sha512::digest_bytes(by, st);
+  const Fe h = sc25519::from_digest(by);
+
+  // S = h*a + r mod l
+  int32_t s_bytes[32];
+  norm_to_bytes(s_bytes, sc25519::muladd(h, sc25519::mod(secret_scalar(md)), r));
+#pragma unroll
+  for (int j = 0; j < 32; j++) {
+    sig[j] = (uint8_t)R[j];
+    sig[32 + j] = (uint8_t)s_bytes[j];
+  }
+}
+
+#ifdef __CUDACC__
+
+constexpr int kBlock = 128;
+constexpr int kTableWords = 256 * kEntryWords;
+
+__device__ __forceinline__ void load_table(uint32_t* dst, const uint32_t* src) {
+  for (int i = threadIdx.x; i < kTableWords; i += blockDim.x) dst[i] = src[i];
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kBlock)
+keygen_kernel(uint8_t* __restrict__ pk, const uint8_t* __restrict__ sk,
+              const int32_t* __restrict__ zr, int64_t zr_stride, const int32_t* __restrict__ bl,
+              int64_t bl_stride, const int32_t* __restrict__ bp, int64_t bp_stride,
+              const uint32_t* __restrict__ table, int64_t n) {
+  __shared__ __align__(16) uint32_t tbl[kTableWords];
+  load_table(tbl, table);
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  keygen_lane(pk + 32 * lane, sk + 32 * lane, zr ? zr + zr_stride * lane : nullptr,
+              bl ? bl + bl_stride * lane : nullptr, bp ? bp + bp_stride * lane : nullptr, tbl);
+}
+
+__global__ void __launch_bounds__(kBlock)
+sign_kernel(uint8_t* __restrict__ sig, const uint8_t* __restrict__ priv,
+            const int32_t* __restrict__ w2, int64_t nw2, const int32_t* __restrict__ nb2,
+            const int32_t* __restrict__ w3, int64_t nw3, const int32_t* __restrict__ nb3,
+            const int32_t* __restrict__ zr, int64_t zr_stride, const int32_t* __restrict__ bl,
+            int64_t bl_stride, const int32_t* __restrict__ bp, int64_t bp_stride,
+            const uint32_t* __restrict__ table, int64_t n) {
+  __shared__ __align__(16) uint32_t tbl[kTableWords];
+  load_table(tbl, table);
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  sign_lane(sig + 64 * lane, priv + 64 * lane, w2 + nw2 * lane, nb2[lane], w3 + nw3 * lane,
+            nb3[lane], zr ? zr + zr_stride * lane : nullptr,
+            bl ? bl + bl_stride * lane : nullptr, bp ? bp + bp_stride * lane : nullptr, tbl);
+}
+
+// pk: [n, 32] uint8 out; sk: [n, 32] uint8 seeds; zr, bl: 20-limb int32
+// rows and bp: 80-limb rows at their strides (0: one shared row), each
+// possibly null (bl and bp together); table: the packed folding-8 table.
+// Launches on `stream`, allocates nothing, does not synchronize. Returns
+// cudaGetLastError().
+extern "C" int keygen_launch(void* pk, const void* sk, const void* zr, int64_t zr_stride,
+                             const void* bl, int64_t bl_stride, const void* bp,
+                             int64_t bp_stride, const void* table, int64_t n, void* stream) {
+  if (n > 0) {
+    const unsigned blocks = (unsigned)((n + kBlock - 1) / kBlock);
+    keygen_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+        (uint8_t*)pk, (const uint8_t*)sk, (const int32_t*)zr, zr_stride, (const int32_t*)bl,
+        bl_stride, (const int32_t*)bp, bp_stride, (const uint32_t*)table, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// sig: [n, 64] uint8 out; priv: [n, 64] uint8 (seed || pk); w2: [n, nw2] and
+// w3: [n, nw3] int32 padded word rows with nb2, nb3: [n] int32 active
+// blocks; the rest as keygen_launch.
+extern "C" int sign_launch(void* sig, const void* priv, const void* w2, int64_t nw2,
+                           const void* nb2, const void* w3, int64_t nw3, const void* nb3,
+                           const void* zr, int64_t zr_stride, const void* bl, int64_t bl_stride,
+                           const void* bp, int64_t bp_stride, const void* table, int64_t n,
+                           void* stream) {
+  if (n > 0) {
+    const unsigned blocks = (unsigned)((n + kBlock - 1) / kBlock);
+    sign_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+        (uint8_t*)sig, (const uint8_t*)priv, (const int32_t*)w2, nw2, (const int32_t*)nb2,
+        (const int32_t*)w3, nw3, (const int32_t*)nb3, (const int32_t*)zr, zr_stride,
+        (const int32_t*)bl, bl_stride, (const int32_t*)bp, bp_stride, (const uint32_t*)table, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+#endif  // __CUDACC__
+
+// ---------------------------------------------------------------------------
+// Host entries: the same per-lane code on the CPU, for the tests.
+// ---------------------------------------------------------------------------
+extern "C" void keygen_host(uint8_t* pk, const uint8_t* sk, const int32_t* zr,
+                            int64_t zr_stride, const int32_t* bl, int64_t bl_stride,
+                            const int32_t* bp, int64_t bp_stride, const uint32_t* table,
+                            int64_t n) {
+  for (int64_t i = 0; i < n; i++)
+    keygen_lane(pk + 32 * i, sk + 32 * i, zr ? zr + zr_stride * i : nullptr,
+                bl ? bl + bl_stride * i : nullptr, bp ? bp + bp_stride * i : nullptr, table);
+}
+
+extern "C" void sign_host(uint8_t* sig, const uint8_t* priv, const int32_t* w2, int64_t nw2,
+                          const int32_t* nb2, const int32_t* w3, int64_t nw3, const int32_t* nb3,
+                          const int32_t* zr, int64_t zr_stride, const int32_t* bl,
+                          int64_t bl_stride, const int32_t* bp, int64_t bp_stride,
+                          const uint32_t* table, int64_t n) {
+  for (int64_t i = 0; i < n; i++)
+    sign_lane(sig + 64 * i, priv + 64 * i, w2 + nw2 * i, nb2[i], w3 + nw3 * i, nb3[i],
+              zr ? zr + zr_stride * i : nullptr, bl ? bl + bl_stride * i : nullptr,
+              bp ? bp + bp_stride * i : nullptr, table);
+}
+
+enum ScOp { SC_MOD, SC_ADD, SC_MUL, SC_MULADD, SC_SUB_FROM_ELL, SC_FROM_DIGEST, SC_CUT8 };
+
+// One mod-l op over n lanes. x, y, z, out: [n, 20] int32 limbs, except that
+// SC_FROM_DIGEST reads x as [n, 64] byte values and SC_CUT8 writes [n, 32]
+// digits. Returns 0, or -1 for an unknown op.
+extern "C" int sc25519_op_host(int op, int32_t* out, const int32_t* x, const int32_t* y,
+                               const int32_t* z, int64_t n) {
+  for (int64_t lane = 0; lane < n; lane++) {
+    Fe a, b, c, r;
+    if (op == SC_FROM_DIGEST) {
+      int32_t by[64];
+      for (int j = 0; j < 64; j++) by[j] = x[64 * lane + j];
+      r = sc25519::from_digest(by);
+    } else {
+      a = load_fe(x + NLIMBS * lane);
+      b = y ? load_fe(y + NLIMBS * lane) : a;
+      c = z ? load_fe(z + NLIMBS * lane) : a;
+      switch (op) {
+        case SC_MOD: r = sc25519::mod(a); break;
+        case SC_ADD: r = sc25519::add(a, b); break;
+        case SC_MUL: r = sc25519::mul(a, b); break;
+        case SC_MULADD: r = sc25519::muladd(a, b, c); break;
+        case SC_SUB_FROM_ELL: r = sc25519::sub_from_ell(a); break;
+        case SC_CUT8: {
+          int32_t dig[32];
+          sc25519::cut8(dig, a);
+          for (int j = 0; j < 32; j++) out[32 * lane + j] = dig[j];
+          continue;
+        }
+        default: return -1;
+      }
+    }
+    for (int i = 0; i < NLIMBS; i++) out[NLIMBS * lane + i] = r.v[i];
+  }
+  return 0;
+}

@@ -1,0 +1,122 @@
+"""Wrapper of the CUDA folding base-multiply kernel (csrc/basemult.cu), the
+counterpart of curve25519_tpu/ops/pallas/edwards_kernel.py, and its plain
+version.
+
+``base_mult(cut, zr, bp, mode, nfolds)`` takes the fold digits of a scalar
+([..., 32] for nfolds=8, [..., 64] for nfolds=4; ops/fold.py), an optional
+projective randomizer zr ([..., 20] int32), an optional PE blinding point
+bp (dict of [..., 20] int32: ypx, ymx, t2d, z2) and returns, by mode:
+"affine" (x, y) limbs, "mont_u" (u, u) limbs with u = (Z+Y)/(Z-Y), "pk" the
+compressed point bytes, "u_bytes" enc(u). CUDA tensors launch the kernel
+(or raise); CPU tensors run ``base_mult_plain``. ``launches`` counts kernel
+launches.
+"""
+
+import functools
+
+import numpy as np
+import torch
+
+from curve25519_tpu_torch.config import NLIMBS
+from curve25519_tpu_torch.models import edwards, tables
+from curve25519_tpu_torch.ops import codec, fe
+from curve25519_tpu_torch.ops.cuda import (
+    as_limbs, build, flatten_batch, use_cuda,
+)
+
+__all__ = ["base_mult", "base_mult_plain", "packed_table", "launches",
+           "MODES"]
+
+MODES = {"affine": 0, "mont_u": 1, "pk": 2, "u_bytes": 3}
+PE_KEYS = ("ypx", "ymx", "t2d", "z2")
+
+launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def packed_table(nfolds, device):
+    """The folding table in the kernels' layout, on `device`: per entry 32
+    int32 words, word k = limb 2k | limb 2k+1 << 16 of the 60 limbs
+    ypx ++ ymx ++ t2d, words 30 and 31 zero."""
+    t = tables.folding8_table() if nfolds == 8 else tables.folding4_table()
+    t = t.reshape(len(t), 3 * NLIMBS)
+    packed = np.zeros((len(t), 32), np.int32)
+    packed[:, :3 * NLIMBS // 2] = t[:, 0::2] | (t[:, 1::2] << 16)
+    return torch.as_tensor(packed.reshape(-1), device=device)
+
+
+def base_mult_plain(cut, zr=None, bp=None, mode="affine", nfolds=8):
+    """The plain version: models/edwards' folding multiply, the blinding
+    add, and the epilogue of `mode`."""
+    mult = (edwards.base_point_mult if nfolds == 8
+            else edwards.base_point_mult_fold4)
+    s = mult(cut, zr=zr)
+    if bp is not None:
+        s = edwards.add_pe(s, bp)
+    if mode in ("affine", "pk"):
+        x, y = edwards.to_affine(s)
+        if mode == "affine":
+            return x, y
+        return codec.pack_point(fe.to_bytes(y), fe.canon(x)[..., 0] & 1)
+    u = fe.mul(fe.add(s["z"], s["y"]), fe.inv(fe.sub(s["z"], s["y"])))
+    return (u, u) if mode == "mont_u" else fe.to_bytes(u)
+
+
+def limb_rows(x, batch, n):
+    """(rows, stride) for the kernels: a [..., k] int32 tensor broadcast to
+    `batch` as [n, k] contiguous rows, or one shared row (stride 0) when x
+    has no batch axes; (None, 0) for None."""
+    if x is None:
+        return None, 0
+    if x.ndim == 1:
+        return x.contiguous(), 0
+    return x.expand(batch + x.shape[-1:]).reshape(n, -1).contiguous(), \
+        x.shape[-1]
+
+
+def pe_rows(bp, batch, n, device):
+    """A PE point dict as kernel rows of 80 limbs (ypx, ymx, t2d, z2)."""
+    if bp is None:
+        return None, 0
+    coords = [as_limbs(bp[k], "bp[%s]" % k, NLIMBS, device) for k in PE_KEYS]
+    return limb_rows(torch.cat(torch.broadcast_tensors(*coords), -1), batch,
+                     n)
+
+
+def base_mult(cut, zr=None, bp=None, mode="affine", nfolds=8):
+    """Batched folding base multiply (see the module docstring). The device
+    of `cut` decides the route; zr and bp must lie on it."""
+    global launches
+    if mode not in MODES or nfolds not in (4, 8):
+        raise ValueError("bad mode %r or nfolds %r" % (mode, nfolds))
+    ncuts = 256 // nfolds
+    if cut.dtype != torch.int32 or cut.ndim < 1 or cut.shape[-1] != ncuts:
+        raise ValueError("cut must be [..., %d] int32, got %s %s"
+                         % (ncuts, tuple(cut.shape), cut.dtype))
+    if zr is not None:
+        zr = as_limbs(zr, "zr", NLIMBS, cut.device)
+    if not use_cuda(cut):
+        if bp is not None:
+            bp = {k: as_limbs(bp[k], "bp[%s]" % k, NLIMBS, cut.device)
+                  for k in PE_KEYS}
+        return base_mult_plain(cut, zr=zr, bp=bp, mode=mode, nfolds=nfolds)
+
+    batch = cut.shape[:-1]
+    n, unflatten = flatten_batch(batch)
+    cut = cut.reshape(n, ncuts).contiguous()
+    zr_rows, zr_stride = limb_rows(zr, batch, n)
+    bp_rows, bp_stride = pe_rows(bp, batch, n, cut.device)
+    byte_mode = mode in ("pk", "u_bytes")
+    out = torch.empty((n, 32) if byte_mode else (n, 2 * NLIMBS),
+                      dtype=torch.uint8 if byte_mode else torch.int32,
+                      device=cut.device)
+    build.launch("basemult", "basemult_launch", cut.device, out.data_ptr(),
+                 cut.data_ptr(),
+                 None if zr_rows is None else zr_rows.data_ptr(), zr_stride,
+                 None if bp_rows is None else bp_rows.data_ptr(), bp_stride,
+                 packed_table(nfolds, cut.device).data_ptr(), nfolds,
+                 MODES[mode], n)
+    launches += 1
+    if byte_mode:
+        return unflatten(out)
+    return unflatten(out[:, :NLIMBS]), unflatten(out[:, NLIMBS:])

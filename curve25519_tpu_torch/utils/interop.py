@@ -1,15 +1,15 @@
 """Moving byte and limb tensors between the JAX package and the port.
 
 Both packages use the same layouts: ``[..., 32]`` uint8 byte strings and
-``[..., 20]`` int32 limbs. State crosses as numpy arrays (``np.asarray`` of a
-JAX array on one side); the dtype is kept, so equal arrays mean equal bytes
-or equal limbs.
+``[..., 20]`` int32 limbs; a blinding context is the same dict of them.
+State crosses as numpy arrays (``np.asarray`` of a JAX array on one side);
+the dtype is kept, so equal arrays mean equal bytes or equal limbs.
 """
 
 import numpy as np
 import torch
 
-__all__ = ["from_numpy", "to_numpy"]
+__all__ = ["from_numpy", "to_numpy", "blinding_from_jax"]
 
 _DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int32): torch.int32}
 
@@ -28,3 +28,15 @@ def from_numpy(arr, device="cpu"):
 def to_numpy(t):
     """A torch tensor (any device) as a numpy array of the same dtype."""
     return t.detach().cpu().numpy()
+
+
+def blinding_from_jax(ctx, device="cpu"):
+    """A blinding context of the JAX package (curve25519_tpu.models.blinding,
+    its arrays as numpy or JAX arrays) as the port's dict of tensors on
+    `device`, with the host-side chaining values carried over as they are."""
+    out = {k: from_numpy(ctx[k], device) for k in ("bl", "zr", "zr_bytes")
+           if k in ctx}
+    out["bp"] = {k: from_numpy(v, device) for k, v in ctx["bp"].items()}
+    out.update({k: ctx[k] for k in ("_b", "_zr_bytes", "_bp_point")
+                if k in ctx})
+    return out

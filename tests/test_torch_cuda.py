@@ -1,4 +1,4 @@
-"""The CUDA ladder kernel on the card, against its plain PyTorch version.
+"""The CUDA kernels on the card, against their plain PyTorch versions.
 
 Every test here needs a CUDA card and nvcc, is marked `cuda`, and skips
 where torch.cuda.is_available() is false. The file imports no jax, so it also
@@ -9,6 +9,8 @@ runs where jax is not installed:
 Tolerance: exact bytes.
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -17,8 +19,11 @@ from curve25519_tpu import refmodel
 from curve25519_tpu.config import P
 
 from curve25519_tpu_torch.config import int_to_limbs
-from curve25519_tpu_torch.models import montgomery, x25519
-from curve25519_tpu_torch.ops.cuda import ladder_kernel
+from curve25519_tpu_torch.models import blinding, ed25519, montgomery, x25519
+from curve25519_tpu_torch.ops import fold, sha512
+from curve25519_tpu_torch.ops.cuda import (
+    edwards_kernel, ladder_kernel, sha512_kernel, sign_kernel,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -80,3 +85,73 @@ def test_kernel_rejects_mixed_devices(dev):
     sk = torch.zeros(2, 32, dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError):
         x25519.create_shared_key(torch.zeros(2, 32, dtype=torch.uint8), sk)
+
+
+def test_numpy_inputs_land_on_the_card(dev, rng):
+    sk = rng.integers(0, 256, (5, 32), dtype=np.uint8)
+    peer = rng.integers(0, 256, (5, 32), dtype=np.uint8)
+    before = ladder_kernel.launches
+    got = x25519.create_shared_key(peer, sk)
+    torch.cuda.synchronize()
+    assert got.is_cuda and ladder_kernel.launches == before + 1
+    assert torch.equal(got.cpu(), x25519.create_shared_key(peer, sk,
+                                                           device="cpu"))
+
+
+@pytest.mark.parametrize("nfolds", [8, 4])
+def test_basemult_kernel_equals_plain(dev, rng, nfolds):
+    sk = on(dev, rng.integers(0, 256, (300, 32), dtype=np.uint8))
+    cut = (fold.cut8_bytes if nfolds == 8 else fold.cut4_bytes)(sk)
+    ctx = blinding.blinding_init(b"cuda", device=dev)
+    for mode in edwards_kernel.MODES:
+        for bp in (None, ctx["bp"]):
+            before = edwards_kernel.launches
+            got = edwards_kernel.base_mult(cut, zr=ctx["zr"], bp=bp, mode=mode,
+                                           nfolds=nfolds)
+            want = edwards_kernel.base_mult_plain(cut, zr=ctx["zr"], bp=bp,
+                                                  mode=mode, nfolds=nfolds)
+            torch.cuda.synchronize()
+            assert edwards_kernel.launches == before + 1
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), mode
+    assert torch.equal(x25519.calculate_public_key_fast(sk, nfolds=nfolds),
+                       x25519.calculate_public_key(sk))
+
+
+def test_sha512_kernel_equals_plain_and_hashlib(dev, rng):
+    msg = rng.integers(0, 256, (9, 240), dtype=np.uint8)
+    lengths = np.array([0, 1, 111, 112, 127, 128, 129, 239, 240], np.int32)
+    before = sha512_kernel.launches
+    got = sha512.sha512(on(dev, msg), on(dev, lengths))
+    assert sha512_kernel.launches == before + 1
+    assert torch.equal(got, sha512.sha512_plain(on(dev, msg), on(dev, lengths)))
+    assert [bytes(r) for r in got.cpu().numpy()] == [
+        hashlib.sha512(m[:n].tobytes()).digest() for m, n in zip(msg, lengths)]
+
+
+def test_keygen_and_sign_kernels_equal_plain(dev, rng):
+    sk = on(dev, rng.integers(0, 256, (130, 32), dtype=np.uint8))
+    ctx = blinding.blinding_init(b"cuda", device=dev)
+    zr = blinding.default_zr(device=dev)
+    before = dict(sign_kernel.launches)
+    pk, priv = ed25519.create_keypair(sk)
+    assert torch.equal(pk, sign_kernel.keygen_plain(sk, zr=zr))
+    assert torch.equal(ed25519.create_keypair(sk, blinding=ctx)[0], pk)
+    msg = on(dev, rng.integers(0, 256, (130, 943), dtype=np.uint8))
+    lengths = on(dev, rng.integers(0, 944, 130).astype(np.int32))
+    sig = ed25519.sign(priv, msg, lengths)
+    assert torch.equal(sig, sign_kernel.sign_plain(priv, msg, lengths, zr=zr))
+    assert torch.equal(ed25519.sign(priv, msg, lengths, blinding=ctx), sig)
+    assert sign_kernel.launches == {"keygen": before["keygen"] + 2,
+                                    "sign": before["sign"] + 2}
+    # a message over 943 bytes takes the SHA-512 and base-multiply kernels
+    long = on(dev, rng.integers(0, 256, (4, 2000), dtype=np.uint8))
+    n_long = on(dev, np.array([944, 1000, 1500, 2000], np.int32))
+    before = (sha512_kernel.launches, edwards_kernel.launches)
+    got = ed25519.sign(priv[:4], long, n_long)
+    assert (sha512_kernel.launches, edwards_kernel.launches) == (
+        before[0] + 3, before[1] + 1)
+    assert [bytes(r) for r in got.cpu().numpy()] == [
+        refmodel.ed_sign(bytes(p.cpu().tolist()), bytes(m[:n].cpu().tolist()))
+        for p, m, n in zip(priv[:4], long, n_long.tolist())]

@@ -81,7 +81,8 @@ _JIT_INV = jax.jit(jfe.inv)
 
 def test_constants_match_the_jax_package():
     for name in ("P", "BITS", "NLIMBS", "MASK", "FOLD", "A24", "MONT_BASE_U",
-                 "SQRT_M1"):
+                 "SQRT_M1", "ELL", "ED_D", "ED_2D", "ED_DI", "ED_BX",
+                 "ED_BY"):
         assert getattr(tconfig, name) == getattr(jconfig, name), name
     for v in EDGE + [2**260 - 1]:
         np.testing.assert_array_equal(tconfig.int_to_limbs(v),

@@ -1,0 +1,133 @@
+"""The port's batched SHA-512 against hashlib and the JAX package's.
+
+curve25519_tpu_torch.ops.sha512 on CPU tensors runs the plain compression
+of ops/cuda/sha512_kernel.py; the g++ build of the kernel's lane code
+(csrc/sha512.cu) runs on the same padded words. Inputs come from a seeded
+numpy generator. Tolerance: exact bytes (and exact words for the padding).
+"""
+
+import hashlib
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from curve25519_tpu.ops import sha512 as jsha
+from curve25519_tpu.ops.pallas import sha512_kernel as jshk
+
+from curve25519_tpu_torch.ops import sha512
+from curve25519_tpu_torch.ops.cuda import build, sha512_kernel
+from curve25519_tpu_torch.utils.interop import from_numpy, to_numpy
+
+# the padding edges: one block holds up to 111 bytes, two up to 239
+EDGE_LENGTHS = [0, 1, 111, 112, 127, 128, 129, 239, 240, 255, 256]
+
+_jax_sha = jax.jit(jsha.sha512)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _free_xla_executables():
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(512)
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the kernel sources for the CPU")
+    return build.load_host(build.build_host(tmp_path_factory.mktemp("host")))
+
+
+def digests(t):
+    return [bytes(r) for r in to_numpy(t).reshape(-1, 64)]
+
+
+def test_padding_edges_equal_hashlib_and_jax(rng):
+    msg = rng.integers(0, 256, (len(EDGE_LENGTHS), 256), dtype=np.uint8)
+    lengths = np.array(EDGE_LENGTHS, np.int32)
+    got = sha512.sha512(from_numpy(msg), from_numpy(lengths))
+    assert got.shape == (len(EDGE_LENGTHS), 64) and got.dtype == torch.uint8
+    assert digests(got) == [hashlib.sha512(m[:n].tobytes()).digest()
+                            for m, n in zip(msg, EDGE_LENGTHS)]
+    np.testing.assert_array_equal(to_numpy(got),
+                                  np.asarray(_jax_sha(msg, lengths)))
+    # a message of exactly L bytes needs no length argument; rank-1 is one call
+    one = sha512.sha512(from_numpy(msg[3, :127]))
+    assert bytes(to_numpy(one)) == hashlib.sha512(msg[3, :127].tobytes()).digest()
+
+
+@pytest.mark.parametrize("plen", [32, 64])
+def test_prefix_and_ragged_lengths_equal_jax(rng, plen):
+    msg = rng.integers(0, 256, (6, 200), dtype=np.uint8)
+    prefix = rng.integers(0, 256, (6, plen), dtype=np.uint8)
+    lengths = np.array([0, 1, 47, 48, 111, 200], np.int32)
+    got = sha512.sha512(from_numpy(msg), from_numpy(lengths),
+                        prefix=from_numpy(prefix))
+    want = np.asarray(_jax_sha(msg, lengths, prefix=prefix))
+    np.testing.assert_array_equal(to_numpy(got), want)
+    assert digests(got)[2] == hashlib.sha512(
+        prefix[2].tobytes() + msg[2, :47].tobytes()).digest()
+    # one prefix broadcast over the batch == the explicit broadcast
+    shared = sha512.sha512(from_numpy(msg), from_numpy(lengths),
+                           prefix=from_numpy(prefix[0]))
+    again = sha512.sha512(from_numpy(msg), from_numpy(lengths),
+                          prefix=from_numpy(np.broadcast_to(prefix[0],
+                                                            prefix.shape)))
+    assert torch.equal(shared, again)
+
+
+def test_pack_words_equal_jax(rng):
+    msg = rng.integers(0, 256, (5, 150), dtype=np.uint8)
+    lengths = np.array([0, 3, 80, 149, 150], np.int32)
+    prefix = rng.integers(0, 256, (5, 32), dtype=np.uint8)
+    for pre in (None, prefix):
+        words, nblocks, nb = sha512.pack_words(
+            from_numpy(msg), from_numpy(lengths),
+            None if pre is None else from_numpy(pre))
+        jw, jnbl, jnb = jshk._pack_words(
+            jnp.asarray(msg), jnp.asarray(lengths),
+            None if pre is None else jnp.asarray(pre))
+        assert nb == jnb
+        np.testing.assert_array_equal(to_numpy(words),
+                                      np.asarray(jw).view(np.int32))
+        np.testing.assert_array_equal(to_numpy(nblocks), np.asarray(jnbl))
+
+
+def test_host_kernel_equals_plain_and_hashlib(lib, rng):
+    msg = rng.integers(0, 256, (len(EDGE_LENGTHS), 256), dtype=np.uint8)
+    words, nblocks, _ = sha512.pack_words(
+        from_numpy(msg), from_numpy(np.array(EDGE_LENGTHS, np.int32)))
+    words = np.ascontiguousarray(to_numpy(words))
+    nblocks = np.ascontiguousarray(to_numpy(nblocks))
+    out = np.zeros((len(msg), 64), np.uint8)
+    lib.sha512_host(out.ctypes.data, words.ctypes.data, nblocks.ctypes.data,
+                    words.shape[1], len(msg))
+    plain = sha512_kernel.sha512_blocks_plain(from_numpy(words),
+                                              from_numpy(nblocks))
+    np.testing.assert_array_equal(out, to_numpy(plain))
+    assert [bytes(r) for r in out] == [
+        hashlib.sha512(m[:n].tobytes()).digest()
+        for m, n in zip(msg, EDGE_LENGTHS)]
+
+
+def test_sha512_bytes_and_the_device_rule():
+    assert sha512.sha512_bytes(b"abc", device="cpu") == hashlib.sha512(
+        b"abc").digest()
+    assert sha512.sha512_bytes(b"", device="cpu") == hashlib.sha512().digest()
+    with pytest.raises(ValueError):
+        sha512.sha512(torch.zeros(2, 8, dtype=torch.uint8),
+                      prefix=torch.zeros(2, 6, dtype=torch.uint8))
+    if not torch.cuda.is_available():
+        # bytes with no device and no card: never a silent CPU run
+        with pytest.raises(RuntimeError):
+            sha512.sha512_bytes(b"abc")

@@ -155,17 +155,41 @@ def test_cpu_tensors_take_the_plain_version_without_launching(rng):
     assert torch.equal(got, montgomery.point_multiply(peer, sk))
 
 
+def test_numpy_inputs_follow_the_device_rule(rng):
+    sk, peer = rand_bytes(rng, 3), rand_bytes(rng, 3)
+    before = ladder_kernel.launches
+    got = x25519.create_shared_key(peer, sk, device="cpu")
+    assert got.device.type == "cpu" and ladder_kernel.launches == before
+    assert torch.equal(got, montgomery.point_multiply(from_numpy(peer),
+                                                      from_numpy(sk)))
+    assert torch.equal(x25519.calculate_public_key(list(sk[0]), device="cpu"),
+                       x25519.calculate_public_key(from_numpy(sk[0])))
+    if not torch.cuda.is_available():
+        # no device given and no card: raise, never a silent CPU run
+        with pytest.raises(RuntimeError):
+            x25519.create_shared_key(peer, sk)
+
+
 def test_port_imports_no_jax():
+    modules = ["curve25519_tpu_torch.%s" % m for m in (
+        "refmodel", "_custom_blind", "ops.sha512", "ops.sc", "ops.fold",
+        "models.tables", "models.edwards", "models.blinding",
+        "models.ed25519", "models.x25519", "ops.cuda.sha512_kernel",
+        "ops.cuda.edwards_kernel", "ops.cuda.sign_kernel",
+        "utils.interop", "utils.profiling")]
     code = (
-        "import sys\n"
+        "import importlib, sys\n"
         "import torch\n"
-        "from curve25519_tpu_torch.models import x25519\n"
+        "for m in %r:\n"
+        "    importlib.import_module(m)\n"
+        "from curve25519_tpu_torch.models import ed25519, x25519\n"
         "k = torch.tensor(list(bytes.fromhex('%s')), dtype=torch.uint8)\n"
         "u = torch.tensor(list(bytes.fromhex('%s')), dtype=torch.uint8)\n"
         "assert bytes(x25519.create_shared_key(u, k).tolist()).hex() == '%s'\n"
+        "pk, _ = ed25519.create_keypair(k)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'curve25519_tpu']\n"
-        "assert not bad, bad\n" % (V1_K, V1_U, V1_OUT))
+        "assert not bad, bad\n" % (modules, V1_K, V1_U, V1_OUT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
