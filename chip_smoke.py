@@ -33,7 +33,24 @@ nothing of JAX or of the JAX package. Phases, each printing a line:
    and fold 4 (held equal to the ladder's calculate_public_key on all
    lanes), sha512 of 64-byte messages, and the long-message sign (1,024
    lanes, 944-4,096 bytes); then each kernel timed against its plain
-   version at the same batch.
+   version at the same batch;
+9. the three verify kernels against their plain versions, byte for byte:
+   4,096 lanes of valid, random (half of them off the curve) and edge keys,
+   Verify_Init, the double-scalar multiply with a q_table per lane and with
+   one shared q_table, the one-shot kernel, ragged, rank-1 and broadcast
+   calls; then verify, verify_check (per-lane and shared) against the
+   table-free plain oracle on signatures of ragged messages up to 1,200
+   bytes (over 8 SHA-512 blocks), valid and tampered;
+10. verify known answers: RFC 8032 TEST 1-3 and their tampered forms, the
+   16 edge-encoding vectors of tests/test_edge_encodings.py rebuilt here on
+   Python integers (strict and not), and random lanes against an
+   independent Python-integer verify;
+11. the verify paths at full size (262,144 distinct keys, 64-byte
+   messages), each driven with the launch counts set to 0 just before it
+   and read just after: verify_init, verify_check against that context,
+   verify_check of one key's signatures against its unbatched context, and
+   the one-shot verify; every valid lane must verify and every tampered lane
+   fail; then each verify kernel timed against its plain version.
 
 It prints the run's wall time, a JSON line of the kernels, the card line,
 then, as its last line, {"ok": true, "device": {...}}. Any failed check
@@ -56,17 +73,29 @@ CHECK_LANES = 4096
 ORACLE_LANES = 4
 LONG_LANES = 1024             # the long-message sign route
 CSRC = "curve25519_tpu_torch/ops/cuda/csrc/"
-# kernel -> (source, the TPU kernel body it replaces)
+VERIFY_LANES = 512             # phase 9's signatures of ragged messages
+PALLAS = "curve25519_tpu/ops/pallas/"
+# kernel -> (source, the TPU kernel body it replaces, its entry functions in
+# ptxas's report)
 KERNELS = {
-    "x25519_ladder_kernel": ("ladder.cu",
-                             "curve25519_tpu/ops/pallas/ladder_kernel.py:30"),
-    "basemult_kernel": ("basemult.cu",
-                        "curve25519_tpu/ops/pallas/edwards_kernel.py:143"),
-    "sha512_kernel": ("sha512.cu",
-                      "curve25519_tpu/ops/pallas/sha512_kernel.py:101"),
-    "keygen_kernel": ("sign.cu",
-                      "curve25519_tpu/ops/pallas/sign_kernel.py:183"),
-    "sign_kernel": ("sign.cu", "curve25519_tpu/ops/pallas/sign_kernel.py:214"),
+    "x25519_ladder_kernel": ("ladder.cu", PALLAS + "ladder_kernel.py:30",
+                             ("x25519_ladder_kernel",)),
+    "basemult_kernel": ("basemult.cu", PALLAS + "edwards_kernel.py:143",
+                        ("basemult_fold8_kernel", "basemult_fold4_kernel")),
+    "sha512_kernel": ("sha512.cu", PALLAS + "sha512_kernel.py:101",
+                      ("sha512_kernel",)),
+    "keygen_kernel": ("sign.cu", PALLAS + "sign_kernel.py:183",
+                      ("keygen_kernel",)),
+    "sign_kernel": ("sign.cu", PALLAS + "sign_kernel.py:214",
+                    ("sign_kernel",)),
+    "verify_init_kernel": ("verify.cu", PALLAS + "verify_kernel.py:218",
+                           ("verify_init_kernel",)),
+    "poly_kernel": ("verify.cu", PALLAS + "verify_kernel.py:85",
+                    ("poly_kernel",)),
+    "poly_shared_kernel": ("verify.cu", PALLAS + "verify_kernel.py:85",
+                           ("poly_shared_kernel",)),
+    "oneshot_kernel": ("verify.cu", PALLAS + "verify_kernel.py:320",
+                       ("oneshot_kernel",)),
 }
 
 P = 2**255 - 19
@@ -171,15 +200,37 @@ def _ed_add(p, q):
             (y1 * y2 + x1 * x2) * pow(1 - k, P - 2, P) % P)
 
 
-def _ed_base_enc(k):
-    r, p = (0, 1), _ED_BASE
+def _ed_mult(k, p):
+    r = (0, 1)
     while k:
         if k & 1:
             r = _ed_add(r, p)
         p = _ed_add(p, p)
         k >>= 1
-    x, y = r
+    return r
+
+
+def _ed_enc(p):
+    x, y = p
     return (y | (x & 1) << 255).to_bytes(32, "little")
+
+
+def _ed_base_enc(k):
+    return _ed_enc(_ed_mult(k, _ED_BASE))
+
+
+def _ed_decompress(b):
+    """RFC 8032 5.1.3 decoding with the reference's leniency: y >= p is
+    taken mod p and x = 0 takes either sign; None off the curve."""
+    v = int.from_bytes(b, "little")
+    y = (v & ((1 << 255) - 1)) % P
+    x2 = (y * y - 1) * pow(_ED_D * y * y + 1, P - 2, P) % P
+    x = pow(x2, (P + 3) // 8, P)
+    if (x * x - x2) % P:
+        x = x * pow(2, (P - 1) // 4, P) % P
+    if (x * x - x2) % P:
+        return None
+    return ((P - x) % P if (x & 1) != v >> 255 else x, y)
 
 
 def _clamp_int(b):
@@ -202,6 +253,75 @@ def oracle_ed25519_sign(seed: bytes, pk: bytes, msg: bytes) -> bytes:
     R = _ed_base_enc(r)
     h = int.from_bytes(hashlib.sha512(R + pk + msg).digest(), "little") % ELL
     return R + ((r + h * a) % ELL).to_bytes(32, "little")
+
+
+def _h_int(r, pk, msg):
+    return int.from_bytes(hashlib.sha512(r + pk + msg).digest(), "little") % ELL
+
+
+def oracle_ed25519_verify(sig, pk, msg, strict=False):
+    """Ed25519 verification on Python integers with the JAX package's
+    semantics: enc(s*G - h*Q) == R as bytes; S >= l only under strict."""
+    q = _ed_decompress(pk)
+    s = int.from_bytes(sig[32:], "little")
+    if q is None or (strict and s >= ELL):
+        return False
+    neg_q = ((P - q[0]) % P, q[1])
+    r = _ed_add(_ed_mult(s, _ED_BASE), _ed_mult(_h_int(sig[:32], pk, msg),
+                                                neg_q))
+    return _ed_enc(r) == sig[:32]
+
+
+EDGE_MSG = b"edge vector msg!"
+
+
+def edge_vectors():
+    """The 16 vectors of tests/test_edge_encodings.py (name, pk, sig, msg,
+    verdict, strict verdict), rebuilt on Python integers."""
+    def le(v):
+        return v.to_bytes(32, "little")
+
+    seed = b"\x01" * 32
+    pk = oracle_ed25519_pk(seed)
+    sig = oracle_ed25519_sign(seed, pk, EDGE_MSG)
+    s_int = int.from_bytes(sig[32:], "little")
+    a = _clamp_int(hashlib.sha512(seed).digest()[:32])
+
+    def forge_for(pk_bytes, order):
+        for s_try in range(1, 400):
+            r = _ed_base_enc(s_try)
+            if _h_int(r, pk_bytes, EDGE_MSG) % order == 0:
+                return r + le(s_try)
+        fail("no forgery scalar found")
+
+    forge_id = _ed_base_enc(12345) + le(12345)
+    r_id, r_nc = le(1), le(P + 1)        # enc(identity), and non-canonical
+    sig_r0 = r_id + le(_h_int(r_id, pk, EDGE_MSG) * a % ELL)
+    sig_rnc = r_nc + le(_h_int(r_nc, pk, EDGE_MSG) * a % ELL)
+    return [
+        ("valid", pk, sig, EDGE_MSG, True, True),
+        ("tampered-msg", pk, sig, b"edge vector msg?", False, False),
+        ("tampered-sig", pk, bytes([sig[0] ^ 1]) + sig[1:], EDGE_MSG, False,
+         False),
+        ("pk-not-on-curve", le(2), sig, EDGE_MSG, False, False),
+        ("pk-max-y", le(2**255 - 1), sig, EDGE_MSG, False, False),
+        ("identity-pk-forge", le(1), forge_id, EDGE_MSG, True, True),
+        ("identity-pk-noncanonical", le(P + 1), forge_id, EDGE_MSG, True,
+         True),
+        ("identity-pk-signbit", le(1 | 1 << 255), forge_id, EDGE_MSG, True,
+         True),
+        ("zero-pk-forge", le(0), forge_for(le(0), 8), EDGE_MSG, True, True),
+        ("zero-pk-noncanonical", le(P), forge_for(le(P), 8), EDGE_MSG, True,
+         True),
+        ("malleable-s-plus-l", pk, sig[:32] + le(s_int + ELL), EDGE_MSG, True,
+         False),
+        ("malleable-s-plus-2l", pk, sig[:32] + le(s_int + 2 * ELL), EDGE_MSG,
+         True, False),
+        ("s-all-ff", pk, sig[:32] + b"\xff" * 32, EDGE_MSG, False, False),
+        ("s-zero", pk, sig[:32] + bytes(32), EDGE_MSG, False, False),
+        ("r-zero-sig", pk, sig_r0, EDGE_MSG, True, True),
+        ("noncanonical-R-bytes", pk, sig_rnc, EDGE_MSG, False, False),
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -262,22 +382,27 @@ class Counts:
     def __init__(self):
         from curve25519_tpu_torch.ops.cuda import (
             edwards_kernel, ladder_kernel, sha512_kernel, sign_kernel,
+            verify_kernel,
         )
         self.mods = {"x25519_ladder_kernel": ladder_kernel,
                      "basemult_kernel": edwards_kernel,
                      "sha512_kernel": sha512_kernel}
-        self.sign = sign_kernel
+        # kernels counted in a module's launches dict: (the dict, its key)
+        self.keyed = {"keygen_kernel": (sign_kernel.launches, "keygen"),
+                      "sign_kernel": (sign_kernel.launches, "sign")}
+        for key in verify_kernel.launches:
+            self.keyed[key + "_kernel"] = (verify_kernel.launches, key)
         self.total = {k: 0 for k in KERNELS}
 
     def zero(self):
         for m in self.mods.values():
             m.launches = 0
-        self.sign.launches.update(keygen=0, sign=0)
+        for d, key in self.keyed.values():
+            d[key] = 0
 
     def read(self):
         got = {k: m.launches for k, m in self.mods.items()}
-        got["keygen_kernel"] = self.sign.launches["keygen"]
-        got["sign_kernel"] = self.sign.launches["sign"]
+        got.update({k: d[key] for k, (d, key) in self.keyed.items()})
         for k, v in got.items():
             self.total[k] += v
         return got
@@ -344,6 +469,26 @@ def sign_ops(blocks, use_bl=False):
     imad, alu = basemult_ops(8, use_bp=use_bl)
     imad += 2 * IMAD_SC_REDUCE + IMAD_SC_MUL + 20
     return imad, alu + (1 + blocks) * SHA_BLOCK_ALU
+
+
+def verify_init_ops():
+    """Decompression (sqrt ratio and x*y: 20 M, 256 S), 192 doublings, 15
+    PE conversions and 11 PE adds."""
+    muls = 20 + 192 * 4 + 15 + 11 * 8
+    sqrs = 256 + 192 * 4
+    return muls * IMAD_MUL + sqrs * IMAD_SQR, 0
+
+
+def poly_ops():
+    """63 doublings, 63 PE adds, 32 PA adds (table entries read by index),
+    the start's and the epilogue's multiplies and one inversion."""
+    muls = 63 * 4 + 63 * 8 + 32 * 7 + 3
+    sqrs = 63 * 4
+    return muls * IMAD_MUL + sqrs * IMAD_SQR + _inv_imad(), 0
+
+
+def oneshot_ops():
+    return tuple(a + b for a, b in zip(verify_init_ops(), poly_ops()))
 
 
 def bound_ms(lanes_ops, nbytes):
@@ -681,7 +826,6 @@ def phase_ed_main(dev, rng, card, counts, batch=MAIN_BATCH):
     from curve25519_tpu_torch.ops.cuda import (
         edwards_kernel as ek, sha512_kernel as shk, sign_kernel as sgk,
     )
-    from curve25519_tpu_torch.utils.profiling import bench
 
     seeds = rand_bytes(rng, (batch, 32), dev)
     msg = rand_bytes(rng, (batch, 64), dev)
@@ -783,22 +927,7 @@ def phase_ed_main(dev, rng, card, counts, batch=MAIN_BATCH):
             lambda p, m, n: sgk.sign_plain(p, m, n, zr=zr), (priv, msg, ml),
             sign_ops(w3_blocks), batch * (64 + 64 + 4 + 64)),
     }
-    rows = {}
-    for name, (kernel_fn, plain_fn, args, ops, nbytes) in cases.items():
-        kernel_s = bench(kernel_fn, *args, reps=3, rounds=3)
-        small = tuple(a[:8] for a in args)
-        plain_fn(*small)                                 # warm the plain path
-        plain_s, plain = timed_once(plain_fn, *args)
-        err = max_abs_err(kernel_fn(*args), plain)
-        check(err == 0, "%s != plain at the main batch" % name)
-        bms, by = bound_ms(tuple(batch * v for v in ops), nbytes)
-        rows[name] = {"max_abs_err": err, "ms": kernel_s * 1e3,
-                      "plain_ms": plain_s * 1e3, "bound_ms": bms,
-                      "bound_by": by}
-        print("phase 8 timing [%s]: %s B=%d kernel %.3f ms (best of 3 x 3 "
-              "after warm-up) | plain PyTorch %.3f ms (one call) | bound "
-              "%.3f ms (%s) | byte-equal"
-              % (card, name, batch, kernel_s * 1e3, plain_s * 1e3, bms, by))
+    rows = time_kernels(cases, batch, card, 8)
     for label, fn, args in (
             ("create_keypair", ed25519.create_keypair, (seeds,)),
             ("sign", ed25519.sign, (priv, msg)),
@@ -810,9 +939,307 @@ def phase_ed_main(dev, rng, card, counts, batch=MAIN_BATCH):
     return rows
 
 
+def time_kernels(cases, batch, card, phase):
+    """Per case name: (kernel wrapper, plain version, args, (IMAD, ALU) per
+    lane, bytes[, args of the plain version's warm-up call, default the
+    first 8 rows]). Times the wrapper (best of 3 x 3 after a warm-up) and
+    one call of the plain version on the same args, holds the two equal and
+    returns each kernel's row for the JSON line."""
+    from curve25519_tpu_torch.utils.profiling import bench
+    rows = {}
+    for name, case in cases.items():
+        kernel_fn, plain_fn, args, ops, nbytes = case[:5]
+        kernel_s = bench(kernel_fn, *args, reps=3, rounds=3)
+        plain_fn(*(case[5] if len(case) > 5 else (a[:8] for a in args)))
+        plain_s, plain = timed_once(plain_fn, *args)
+        err = max_abs_err(kernel_fn(*args), plain)
+        check(err == 0, "%s != plain at the main batch" % name)
+        bms, by = bound_ms(tuple(batch * v for v in ops), nbytes)
+        rows[name] = {"max_abs_err": err, "ms": kernel_s * 1e3,
+                      "plain_ms": plain_s * 1e3, "bound_ms": bms,
+                      "bound_by": by}
+        print("phase %d timing [%s]: %s B=%d kernel %.3f ms (best of 3 x 3 "
+              "after warm-up) | plain PyTorch %.3f ms (one call) | bound "
+              "%.3f ms (%s) | byte-equal"
+              % (phase, card, name, batch, kernel_s * 1e3, plain_s * 1e3, bms,
+                 by))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phases 9-11: verify
+# ---------------------------------------------------------------------------
+# keys that decode specially: y = 0, 1, p, p + 1 (small order, non-canonical)
+# with and without the sign bit; y = 2 and 2^255 - 1 (off the curve)
+EDGE_PK = [0, 1, 2, P, P + 1, 2**255 - 1, 1 | 1 << 255, P | 1 << 255]
+
+
+def le_rows(values, dev):
+    return torch.tensor([list(v.to_bytes(32, "little")) for v in values],
+                        dtype=torch.uint8, device=dev)
+
+
+def verify_digits(sig, pk, msg, msg_len=None):
+    """(u, v): the fold digits of S and of h = SHA512(R || pk || m) mod l,
+    as models/ed25519 computes them for the kernels."""
+    from curve25519_tpu_torch.ops import fold, sc, sha512
+    n = sig.shape[0]
+    prefix = torch.cat([sig[:, :32], pk.expand(n, 32)], -1)
+    h = sc.from_digest(sha512.sha512(msg, msg_len, prefix=prefix))
+    return fold.cut8_bytes(sig[:, 32:]), fold.cut4_limbs(h)
+
+
+def phase_verify_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
+    from curve25519_tpu_torch.models import ed25519
+    from curve25519_tpu_torch.ops import fold, sc
+    from curve25519_tpu_torch.ops.cuda import verify_kernel as vk
+
+    errs = {k: 0 for k in ("verify_init_kernel", "poly_kernel",
+                           "poly_shared_kernel", "oneshot_kernel")}
+
+    def hold(name, got, want, what):
+        err = max_abs_err(got, want)
+        errs[name] = max(errs[name], err)
+        check(err == 0, "%s != plain: %s" % (name, what))
+
+    # keys: valid ones, random bytes (about half off the curve), edge keys
+    pk, _ = ed25519.create_keypair(rand_bytes(rng, (lanes, 32), dev))
+    pk[lanes // 2:] = rand_bytes(rng, (lanes - lanes // 2, 32), dev)
+    pk[:len(EDGE_PK)] = le_rows(EDGE_PK, dev)
+    u = fold.cut8_bytes(rand_bytes(rng, (lanes, 32), dev))
+    v = fold.cut4_limbs(sc.from_digest(rand_bytes(rng, (lanes, 64), dev)))
+
+    planes, ok = vk.verify_init(pk)
+    hold("verify_init_kernel", (planes, ok), vk.verify_init_plain(pk),
+         "%d lanes" % lanes)
+    n_ok = int(ok.sum())
+    check(lanes // 2 < n_ok < lanes, "keys that decode: %d of %d" % (n_ok,
+                                                                     lanes))
+    r = vk.poly_mult(u, v, planes)
+    hold("poly_kernel", r, vk.poly_mult_plain(u, v, planes),
+         "a q_table per lane")
+    shared = {}
+    for i in (0, 3, 9, lanes - 1):   # y = 0, y = p, a valid key, random
+        shared[i] = vk.poly_mult(u, v, planes[i])
+        hold("poly_shared_kernel", shared[i],
+             vk.poly_mult_plain(u, v, planes[i]), "lane %d's q_table" % i)
+    one = vk.verify_oneshot(pk, u, v)
+    hold("oneshot_kernel", one, vk.verify_oneshot_plain(pk, u, v),
+         "%d lanes" % lanes)
+    hold("oneshot_kernel", one, (r, ok), "one-shot != the two phases")
+    for n in (1, 127, 129, 1000):
+        hold("verify_init_kernel", vk.verify_init(pk[:n]),
+             (planes[:n], ok[:n]), "ragged %d" % n)
+        hold("poly_kernel", vk.poly_mult(u[:n], v[:n], planes[:n]), r[:n],
+             "ragged %d" % n)
+        hold("poly_shared_kernel", vk.poly_mult(u[:n], v[:n], planes[9]),
+             shared[9][:n], "ragged %d" % n)
+        hold("oneshot_kernel", vk.verify_oneshot(pk[:n], u[:n], v[:n]),
+             (r[:n], ok[:n]), "ragged %d" % n)
+    # rank-1 calls (a rank-1 q_table takes the shared kernel), broadcasts
+    hold("verify_init_kernel", vk.verify_init(pk[5]), (planes[5], ok[5]),
+         "rank-1")
+    hold("poly_shared_kernel", vk.poly_mult(u[5], v[5], planes[5]), r[5],
+         "rank-1")
+    hold("oneshot_kernel", vk.verify_oneshot(pk[5], u[5], v[5]),
+         (r[5], ok[5]), "rank-1")
+    hold("oneshot_kernel", vk.verify_oneshot(pk[9], u[:16], v[:16]),
+         vk.verify_oneshot_plain(pk[9], u[:16], v[:16]), "one key, 16 lanes")
+    hold("poly_kernel", vk.poly_mult(u[0], v[:16], planes[:16]),
+         vk.poly_mult_plain(u[0], v[:16], planes[:16]), "one s, 16 lanes")
+
+    # the paths on signatures of ragged messages (0-1,200 bytes, up to 11
+    # SHA-512 blocks) against the table-free plain oracle
+    m = VERIFY_LANES
+    pk_m, priv = ed25519.create_keypair(rand_bytes(rng, (m, 32), dev))
+    msg = rand_bytes(rng, (m, 1200), dev)
+    ml = torch.from_numpy(rng.integers(0, 1201, m).astype(np.int32))
+    ml[:4] = torch.tensor([0, 1200, 600, 700], dtype=torch.int32)
+    ml = ml.to(dev)
+    sig = ed25519.sign(priv, msg, ml)
+    sig_one = ed25519.sign(priv[0], msg, ml)           # one key, m messages
+    sig[4, 0] ^= 1                                     # R
+    sig[5, 40] ^= 1                                    # S
+    sig_one[6, 33] ^= 1
+    msg[2, 10] ^= 1                                    # the message
+    ml_check = ml.clone()
+    ml_check[3] -= 1                                   # a shorter message
+    want = torch.ones(m, dtype=torch.bool, device=dev)
+    want[2:6] = False
+    want_one = torch.ones(m, dtype=torch.bool, device=dev)
+    want_one[[2, 3, 6]] = False
+    ctx_one = ed25519.verify_init(pk_m[0])
+    for label, got, expect in (
+            ("verify_tablefree", ed25519.verify_tablefree(
+                sig, pk_m, msg, ml_check), want),
+            ("verify", ed25519.verify(sig, pk_m, msg, ml_check), want),
+            ("verify_check", ed25519.verify_check(
+                ed25519.verify_init(pk_m), sig, msg, ml_check), want),
+            ("shared verify_tablefree", ed25519.verify_tablefree(
+                sig_one, pk_m[0], msg, ml_check), want_one),
+            ("shared verify_check", ed25519.verify_check(
+                ctx_one, sig_one, msg, ml_check), want_one)):
+        check(torch.equal(got, expect), "%s on ragged messages: %d of %d "
+              "lanes wrong" % (label, int((got != expect).sum()), m))
+    torch.cuda.synchronize()
+    print("phase 9 verify kernels vs plain: %d lanes (%d keys decode, %d "
+          "edge keys), Verify_Init, poly with per-lane and shared q_tables, "
+          "one-shot == the two phases, ragged 1/127/129/1000, rank-1, "
+          "broadcast: byte-equal (max_abs_err %s); verify, verify_check "
+          "(per-lane, shared) == the table-free oracle on %d signatures of "
+          "0-1,200-byte messages, valid and tampered"
+          % (lanes, n_ok, len(EDGE_PK), errs, m))
+    return errs
+
+
+def phase_verify_known_answers(dev, rng):
+    from curve25519_tpu_torch.models import ed25519
+
+    pk = torch.stack([hex_bytes(v[1], dev) for v in ED_VECS])
+    sig = torch.stack([hex_bytes(v[3], dev) for v in ED_VECS])
+    msg = torch.zeros((3, 8), dtype=torch.uint8, device=dev)
+    for i, v in enumerate(ED_VECS):
+        b = bytes.fromhex(v[2])
+        msg[i, :len(b)] = torch.tensor(list(b), dtype=torch.uint8)
+    ml = torch.tensor([len(bytes.fromhex(v[2])) for v in ED_VECS],
+                      dtype=torch.int32, device=dev)
+    ctx = ed25519.verify_init(pk)
+    for tamper in (None, "R", "S", "msg"):
+        s, n = sig.clone(), ml + (tamper == "msg")
+        if tamper:
+            s[:, 1 if tamper == "R" else 40] ^= int(tamper != "msg")
+        want = [tamper is None] * 3
+        got = [ed25519.verify(s, pk, msg, n).tolist(),
+               ed25519.verify_check(ctx, s, msg, n).tolist(),
+               [bool(ed25519.verify_check(ed25519.verify_init(pk[i]), s[i],
+                                          msg[i], n[i])) for i in range(3)]]
+        check(got == [want] * 3, "RFC 8032 TEST 1-3 tampered %s: verify, "
+              "verify_check, shared verify_check gave %s" % (tamper, got))
+
+    vecs = edge_vectors()
+    pks = torch.stack([torch.tensor(list(v[1]), dtype=torch.uint8)
+                       for v in vecs]).to(dev)
+    sigs = torch.stack([torch.tensor(list(v[2]), dtype=torch.uint8)
+                        for v in vecs]).to(dev)
+    msgs = torch.stack([torch.tensor(list(v[3]), dtype=torch.uint8)
+                        for v in vecs]).to(dev)
+    ctx = ed25519.verify_init(pks)
+    for strict in (False, True):
+        want = [v[5 if strict else 4] for v in vecs]
+        oracle = [oracle_ed25519_verify(v[2], v[1], v[3], strict)
+                  for v in vecs]
+        check(oracle == want, "the Python-integer verify disagrees with the "
+              "frozen edge verdicts (strict=%s)" % strict)
+        for label, got in (
+                ("verify", ed25519.verify(sigs, pks, msgs, strict=strict)),
+                ("verify_check", ed25519.verify_check(ctx, sigs, msgs,
+                                                      strict=strict)),
+                ("verify_tablefree", ed25519.verify_tablefree(
+                    sigs, pks, msgs, strict=strict))):
+            bad = [v[0] for v, g, w in zip(vecs, got.tolist(), want)
+                   if g != w]
+            check(not bad, "%s strict=%s: edge vectors %s" % (label, strict,
+                                                             bad))
+
+    seeds = rng.integers(0, 256, (ORACLE_LANES, 32), np.uint8)
+    pk, priv = ed25519.create_keypair(torch.from_numpy(seeds).to(dev))
+    msg = rand_bytes(rng, (ORACLE_LANES, 64), dev)
+    sig = ed25519.sign(priv, msg)
+    sig[1, 2] ^= 1
+    sig[2, 50] ^= 1
+    got = ed25519.verify(sig, pk, msg).tolist()
+    for i in range(ORACLE_LANES):
+        check(got[i] == oracle_ed25519_verify(
+            row_bytes(sig[i]), row_bytes(pk[i]), row_bytes(msg[i])),
+            "verify lane %d disagrees with the Python-integer verify" % i)
+    print("phase 10 verify known answers: RFC 8032 TEST 1-3 verify and "
+          "their tampered R, S and messages do not (verify, verify_check, "
+          "shared verify_check); the 16 edge vectors of "
+          "tests/test_edge_encodings.py (strict and not) through verify, "
+          "verify_check, verify_tablefree and the Python-integer verify; "
+          "%d random lanes vs the Python-integer verify: ok" % ORACLE_LANES)
+
+
+def phase_verify_main(dev, rng, card, counts, batch=MAIN_BATCH):
+    from curve25519_tpu_torch.models import ed25519
+    from curve25519_tpu_torch.ops.cuda import verify_kernel as vk
+
+    pk, priv = ed25519.create_keypair(rand_bytes(rng, (batch, 32), dev))
+    msg = rand_bytes(rng, (batch, 64), dev)
+    sig = ed25519.sign(priv, msg)
+    sig_one = ed25519.sign(priv[0], msg)          # one key, every message
+    bad = [1, batch // 2, batch - 1]
+    sig[1, 0] ^= 1                                # R
+    sig[batch // 2, 40] ^= 1                      # S
+    sig[batch - 1] = sig[0]                       # another message's
+    sig_one[bad[0], 63] ^= 1
+    sig_one[bad[1], 31] ^= 1
+    sig_one[bad[2]] = sig_one[0]
+    want = torch.ones(batch, dtype=torch.bool, device=dev)
+    want[bad] = False
+    ctx_one = ed25519.verify_init(pk[0])
+    lines = []
+
+    def path(label, launched, fn, *args):
+        out, wall, got = counts.drive(fn, *args)
+        others = {k: v for k, v in got.items() if k not in launched}
+        check(all(got[k] == n for k, n in launched.items())
+              and not any(others.values()), "%s launched %s" % (label, got))
+        lines.append("%s %.3f s (%s)" % (label, wall, ", ".join(
+            "%s %d" % (k, got[k]) for k in launched)))
+        return out
+
+    ctx = path("verify_init", {"verify_init_kernel": 1}, ed25519.verify_init,
+               pk)
+    check(bool(ctx["ok"].all()), "a valid key did not decode")
+    for label, launched, fn, args, expect in (
+            ("verify_check", {"sha512_kernel": 1, "poly_kernel": 1},
+             ed25519.verify_check, (ctx, sig, msg), want),
+            ("verify_check shared", {"sha512_kernel": 1,
+                                     "poly_shared_kernel": 1},
+             ed25519.verify_check, (ctx_one, sig_one, msg), want),
+            ("verify", {"sha512_kernel": 1, "oneshot_kernel": 1},
+             ed25519.verify, (sig, pk, msg), want)):
+        got = path(label, launched, fn, *args)
+        check(torch.equal(got, expect), "%s: %d of %d lanes wrong"
+              % (label, int((got != expect).sum()), batch))
+    print("phase 11 verify paths, B = %d distinct keys (launches): %s; every "
+          "valid lane verifies, the %d tampered lanes do not"
+          % (batch, "; ".join(lines), len(bad)))
+
+    u, v = verify_digits(sig, pk, msg)
+    u1, v1 = verify_digits(sig_one, pk[0], msg)
+    planes1 = ctx_one["planes"]
+    cases = {
+        "verify_init_kernel": (vk.verify_init, vk.verify_init_plain, (pk,),
+                               verify_init_ops(), batch * (32 + 2560 + 1)),
+        "poly_kernel": (vk.poly_mult, vk.poly_mult_plain,
+                        (u, v, ctx["planes"]), poly_ops(),
+                        batch * (128 + 256 + 2560 + 32)),
+        "poly_shared_kernel": (vk.poly_mult, vk.poly_mult_plain,
+                               (u1, v1, planes1), poly_ops(),
+                               batch * (128 + 256 + 32) + 2560,
+                               (u1[:8], v1[:8], planes1)),
+        "oneshot_kernel": (vk.verify_oneshot, vk.verify_oneshot_plain,
+                           (pk, u, v), oneshot_ops(),
+                           batch * (32 + 128 + 256 + 32 + 1)),
+    }
+    rows = time_kernels(cases, batch, card, 11)
+    for label, fn, args in (
+            ("verify_init", ed25519.verify_init, (pk,)),
+            ("verify_check", ed25519.verify_check, (ctx, sig, msg)),
+            ("verify_check shared", ed25519.verify_check,
+             (ctx_one, sig_one, msg)),
+            ("verify", ed25519.verify, (sig, pk, msg))):
+        print("phase 11 profile [%s]: %s B=%d, 3 calls: %s"
+              % (card, label, batch, profile(fn, *args)))
+    return rows
+
+
 def profile(fn, *args, calls=3):
     """Device time by kernel name over `calls` calls (torch.profiler), and
-    the share of the window's host wall time that the device was busy."""
+    the share of the window's host wall time that the device was busy. A
+    trace without device time falls back to CUDA events around the calls."""
     from torch.profiler import ProfilerActivity
     fn(*args)
     torch.cuda.synchronize()
@@ -828,7 +1255,17 @@ def profile(fn, *args, calls=3):
            and e.device_time_total > 0]
     busy = sum(t for _, t in per) / 1e6
     if not per:
-        return "no device time in the trace (not measured)"
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(calls):
+            fn(*args)
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t0
+        ms = start.elapsed_time(end)
+        return ("no device time in the trace; CUDA events %.3f ms/call, "
+                "%.3f ms host wall" % (ms / calls, wall * 1e3))
     top = sorted(per, key=lambda kv: -kv[1])[:4]
     return "%s | device busy %.1f%% of %.3f ms host wall" % (
         ", ".join("%s %.3f ms/call" % (k[:40], t / 1e3 / calls)
@@ -841,7 +1278,7 @@ def main():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "CUDA card")
     root = Path(__file__).resolve().parent
-    for src, _ in KERNELS.values():
+    for src, _, _ in KERNELS.values():
         check((root / CSRC / src).exists(),
               "%s%s not found next to this script: run it from a checkout"
               % (CSRC, src))
@@ -857,13 +1294,16 @@ def main():
     errs = phase_ed_kernels_vs_plain(dev, rng)
     phase_ed_known_answers(dev, rng)
     rows.update(phase_ed_main(dev, rng, card, counts))
+    errs.update(phase_verify_kernels_vs_plain(dev, rng))
+    phase_verify_known_answers(dev, rng)
+    rows.update(phase_verify_main(dev, rng, card, counts))
     check("jax" not in sys.modules and "curve25519_tpu" not in sys.modules,
           "the port imported jax or the JAX package")
 
     rows["x25519_ladder_kernel"]["max_abs_err"] = max(
         rows["x25519_ladder_kernel"]["max_abs_err"], ladder_err)
     kernels = []
-    for name, (src, replaces) in KERNELS.items():
+    for name, (src, replaces, entries) in KERNELS.items():
         row = rows[name]
         check(counts.total[name] > 0, "%s was launched 0 times on the main "
               "paths" % name)
@@ -874,8 +1314,7 @@ def main():
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None,
-            "registers": max(v["registers"] for k, v in build_info.items()
-                             if k.startswith(name.split("_kernel")[0])),
+            "registers": max(build_info[k]["registers"] for k in entries),
         })
     print("chip_smoke wall time: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-"""Ed25519 keygen and sign, batched (counterpart of
-curve25519_tpu/models/ed25519.py; verify comes with a later slice).
+"""Ed25519 keygen, sign and verify, batched (counterpart of
+curve25519_tpu/models/ed25519.py).
 
 Keys, messages and signatures carry leading batch axes; messages are
 fixed-shape padded byte tensors with per-message lengths. The device rule
@@ -9,16 +9,32 @@ of ops/cuda applies: a tensor keeps its device, anything else goes to
 On a CUDA device, `create_keypair` is one launch of the fused keygen kernel
 and `sign` one launch of the fused sign kernel for messages within
 max_fused_msg_len (943 bytes); longer messages take the composition of the
-SHA-512 and base-multiply kernels. On the CPU all of them run their plain
-versions. A blinding context (models/blinding.py) changes no output byte.
+SHA-512 and base-multiply kernels. `verify_init` is one launch of the
+Verify_Init kernel, `verify_check` two (SHA-512 for h, then the poly kernel
+with a q_table per lane, or the shared one for an unbatched context) and
+`verify` two (SHA-512, then the one-shot kernel). On the CPU all of them
+run their plain versions. A blinding context (models/blinding.py) changes
+no output byte.
+
+Verification semantics (those of the JAX package, frozen by
+tests/test_edge_encodings.py): a y >= p decodes as y - p; x = 0 with the
+sign bit set is accepted; small-order and identity keys are accepted; S >= l
+is accepted unless strict=True; R' is compared with R as encodings.
 """
 
 import torch
 
+from curve25519_tpu_torch.config import ED_2D, ED_BX, ED_BY, P
+from curve25519_tpu_torch.models import edwards
 from curve25519_tpu_torch.models.blinding import default_zr
-from curve25519_tpu_torch.ops.cuda import as_bytes, pick_device, sign_kernel
+from curve25519_tpu_torch.models.edwards import calculate_x, unpack_point
+from curve25519_tpu_torch.ops import codec, fe, fold, sc, sha512
+from curve25519_tpu_torch.ops.cuda import (
+    as_bytes, pick_device, sign_kernel, verify_kernel,
+)
 
-__all__ = ["create_keypair", "sign"]
+__all__ = ["create_keypair", "sign", "verify", "verify_init", "verify_check",
+           "verify_tablefree", "verify_finish", "calculate_x", "unpack_point"]
 
 
 def _blinding_args(blinding, device):
@@ -41,6 +57,17 @@ def create_keypair(sk, blinding=None, device=None):
     return pk, torch.cat([sk, pk], -1)
 
 
+def _msg_len(msg_len, msg, dev):
+    """msg_len as an int32 tensor on dev (default: every message whole)."""
+    if msg_len is None:
+        return torch.full(msg.shape[:-1], msg.shape[-1], dtype=torch.int32,
+                          device=dev)
+    if isinstance(msg_len, torch.Tensor) and msg_len.device != dev:
+        raise ValueError("msg_len is on %s, the keys on %s"
+                         % (msg_len.device, dev))
+    return torch.as_tensor(msg_len, dtype=torch.int32, device=dev)
+
+
 def sign(priv, msg, msg_len=None, blinding=None, device=None):
     """64-byte signatures (R, S): priv [..., 64] (sk || pk), msg [..., L]
     uint8, msg_len [...] int32 live bytes (default L)."""
@@ -49,13 +76,117 @@ def sign(priv, msg, msg_len=None, blinding=None, device=None):
     msg = as_bytes(msg, "msg", None, dev)
     dev = priv.device
     L = msg.shape[-1]
-    if msg_len is None:
-        msg_len = torch.full(msg.shape[:-1], L, dtype=torch.int32, device=dev)
-    elif isinstance(msg_len, torch.Tensor) and msg_len.device != dev:
-        raise ValueError("msg_len is on %s, the keys on %s"
-                         % (msg_len.device, dev))
-    msg_len = torch.as_tensor(msg_len, dtype=torch.int32, device=dev)
+    msg_len = _msg_len(msg_len, msg, dev)
     zr, bl, bp = _blinding_args(blinding, dev)
     route = (sign_kernel.sign_fused if sign_kernel.max_fused_msg_len(L)
              else sign_kernel.sign_composed)
     return route(priv, msg, msg_len, zr=zr, bl=bl, bp=bp)
+
+
+# ---------------------------------------------------------------------------
+# Verify: a per-key context (Verify_Init) and the per-message check
+# ---------------------------------------------------------------------------
+def verify_init(pk, device=None):
+    """The per-key context {pk, planes, ok} of public keys pk [..., 32]:
+    the q_table of -Q as int8 planes [..., 16, 160] (the JAX package's,
+    byte for byte) and whether each key decoded (reference
+    ed25519_Verify_Init)."""
+    pk = as_bytes(pk, "pk", 32, pick_device(pk, device=device))
+    planes, ok = verify_kernel.verify_init(pk)
+    return {"pk": pk, "planes": planes, "ok": ok}
+
+
+def _inputs(pk, sig, msg, msg_len):
+    """(sig, msg, msg_len, batch) on pk's device, msg broadcast to the
+    batch of the three."""
+    sig = as_bytes(sig, "sig", 64, pk.device)
+    msg = as_bytes(msg, "msg", None, pk.device)
+    batch = torch.broadcast_shapes(msg.shape[:-1], sig.shape[:-1],
+                                   pk.shape[:-1])
+    msg = msg.expand(batch + msg.shape[-1:])
+    return sig, msg, _msg_len(msg_len, msg, pk.device), batch
+
+
+def _digits(sig, pk, msg, msg_len, batch):
+    """The fold digits (u of S, v of h = SHA512(R || pk || m) mod l)."""
+    prefix = torch.cat([sig[..., :32].expand(batch + (32,)),
+                        pk.expand(batch + (32,))], -1)
+    h = sc.from_digest(sha512.sha512(msg, msg_len, prefix=prefix))
+    return (fold.cut8_bytes(sig[..., 32:]).expand(batch + (32,)),
+            fold.cut4_limbs(h))
+
+
+def _verdict(r_bytes, ok, sig, strict):
+    """R' == R as encodings, the key decoded, and with strict S < l."""
+    result = (r_bytes == sig[..., :32]).all(-1) & ok
+    if strict:
+        s = sig[..., 32:]
+        result = result & (sc.to_bytes(sc.from_bytes(s)) == s).all(-1)
+    return result
+
+
+def verify_check(ctx, sig, msg, msg_len=None, strict=False):
+    """Per-message phase against a context from verify_init: [...] bool
+    (reference ed25519_Verify_Check). An unbatched context (one key) serves
+    every message through one shared q_table."""
+    pk = ctx["pk"]
+    sig, msg, msg_len, batch = _inputs(pk, sig, msg, msg_len)
+    u, v = _digits(sig, pk, msg, msg_len, batch)
+    planes = ctx["planes"]
+    if planes.ndim != 2:
+        planes = planes.expand(batch + planes.shape[-2:])
+    return _verdict(verify_kernel.poly_mult(u, v, planes), ctx["ok"], sig,
+                    strict)
+
+
+def verify(sig, pk, msg, msg_len=None, strict=False, device=None):
+    """One-shot verify: [...] bool (reference ed25519_VerifySignature). On
+    a card, SHA-512 and the one-shot kernel; on the CPU the two plain
+    phases. One key over many messages is cheaper as verify_init once and
+    verify_check."""
+    pk = as_bytes(pk, "pk", 32, pick_device(pk, sig, msg, msg_len,
+                                            device=device))
+    sig, msg, msg_len, batch = _inputs(pk, sig, msg, msg_len)
+    u, v = _digits(sig, pk, msg, msg_len, batch)
+    r_bytes, ok = verify_kernel.verify_oneshot(pk.expand(batch + (32,)), u, v)
+    return _verdict(r_bytes, ok, sig, strict)
+
+
+def verify_tablefree(sig, pk, msg, msg_len=None, strict=False, device=None):
+    """Table-free verification oracle in plain PyTorch on every device: R' by
+    MSB-first double-and-add over the bits of S and h, with G built from the
+    curve constants and no folding table or q_table (reference
+    alt_ed25519_VerifySignature). strict as in verify_check."""
+    pk = as_bytes(pk, "pk", 32, pick_device(pk, sig, msg, msg_len,
+                                            device=device))
+    sig, msg, msg_len, batch = _inputs(pk, sig, msg, msg_len)
+    dev = pk.device
+    hmsg = torch.cat([sig[..., :32].expand(batch + (32,)),
+                      pk.expand(batch + (32,)), msg], -1)
+    h = sc.from_digest(sha512.sha512_plain(hmsg, 64 + msg_len))
+    q, ok = unpack_point(pk.expand(batch + (32,)), negate=True)
+    q_pe = edwards.to_pe(q)
+    g_pa = {"ypx": fe.from_int((ED_BY + ED_BX) % P, batch, dev),
+            "ymx": fe.from_int((ED_BY - ED_BX) % P, batch, dev),
+            "t2d": fe.from_int(ED_2D * ED_BX * ED_BY % P, batch, dev)}
+    s_bits = codec.scalar_bits(sig[..., 32:]).expand(batch + (256,))
+    h_bits = codec.scalar_bits(sc.to_bytes(h))
+    st = edwards.identity_ext(batch, dev)
+    for i in range(255, -1, -1):
+        st = edwards.double(st)
+        st = _select_point(s_bits[..., i], edwards.add_pa(st, g_pa), st)
+        st = _select_point(h_bits[..., i], edwards.add_pe(st, q_pe), st)
+    r_bytes = edwards.pack(*edwards.to_affine(st))
+    return _verdict(r_bytes, ok, sig, strict)
+
+
+def _select_point(mask, a, b):
+    return {k: fe.select(mask, a[k], b[k]) for k in a}
+
+
+def verify_finish(ctx):
+    """Release a verify context (reference ed25519_Verify_Finish): drops its
+    tensors, so their device memory goes back to the allocator once no one
+    else holds them. The caller's pk stays the caller's."""
+    for k in [k for k in ctx if k != "pk"]:
+        del ctx[k]

@@ -12,15 +12,25 @@ constant-time table add) over the fold digits with a randomized projective
 start. With the epilogues of ops/cuda/edwards_kernel.py it is the plain
 version of the CUDA base-multiply kernel (csrc/basemult.cu), whose device
 code (csrc/edwards25519.cuh) keeps the same op order.
+
+Verify's point code lives here too: decompression (``calculate_x``,
+``unpack_point``, the JAX package's models/ed25519.py:50-73, re-exported by
+models/ed25519.py), compression (``pack``, its ``_pack``) and the
+double-scalar multiply s*G + h*(-Q) (``poly_point_mult``, its
+``_poly_point_multiply``), which with ``pack`` is the plain version of the
+CUDA poly kernels (csrc/verify.cu).
 """
 
-from curve25519_tpu_torch.config import ED_2D, ED_DI
+import torch
+
+from curve25519_tpu_torch.config import ED_2D, ED_D, ED_DI
 from curve25519_tpu_torch.models import tables
-from curve25519_tpu_torch.ops import fe
+from curve25519_tpu_torch.ops import codec, fe
 
 __all__ = [
     "double", "add_pe", "add_pa", "to_pe", "to_affine", "base_point_mult",
-    "base_point_mult_fold4", "identity_ext",
+    "base_point_mult_fold4", "identity_ext", "calculate_x", "unpack_point",
+    "pack", "poly_point_mult",
 ]
 
 
@@ -115,3 +125,54 @@ def base_point_mult_fold4(cut, zr=None):
     """S = a*G via folding-4: 63 x (double + table add) over [..., 64]
     4-fold digits (ops/fold.cut4_*) against the 16-entry table."""
     return _base_mult_folded(cut, zr, tables.gather_pa4)
+
+
+def calculate_x(y, parity):
+    """x from y with the given parity bit, and ok where (y^2 - 1)/(d y^2 + 1)
+    is a square (reference ed25519_CalculateX). A y >= p is taken mod p, and
+    x = 0 takes either parity."""
+    one = fe.one(y.shape[:-1], y.device)
+    y2 = fe.sqr(y)
+    u = fe.sub(y2, one)
+    v = fe.add(fe.mul(y2, fe.from_int(ED_D, device=y.device)), one)
+    x, ok = fe.sqrt_ratio(u, v)
+    xc = fe.canon(x)
+    flip = ((xc[..., 0] ^ parity) & 1) == 1
+    return fe.select(flip, fe.neg(xc), xc), ok
+
+
+def unpack_point(p_bytes, negate=False):
+    """[..., 32] uint8 compressed point -> (Ext point, ok). negate=True gives
+    -Q (the parity flipped), the form a verify context holds."""
+    y_bytes, parity = codec.unpack_parity(p_bytes)
+    if negate:
+        parity = 1 - parity
+    y = fe.from_bytes(y_bytes)
+    x, ok = calculate_x(y, parity)
+    return {"x": x, "y": y, "z": fe.one(y.shape[:-1], y.device),
+            "t": fe.mul(x, y)}, ok
+
+
+def pack(x, y):
+    """Affine limbs -> [..., 32] uint8 compressed point (enc(y), x's parity
+    in bit 255)."""
+    return codec.pack_point(fe.to_bytes(y), fe.canon(x)[..., 0] & 1)
+
+
+def poly_point_mult(u, v, planes):
+    """R' = s*G + h*(-Q) as affine (x, y): the 32 8-fold digits u of s
+    against the folding-8 table interleaved with the 64 4-fold digits v of h
+    against the q_table planes (tables.gather_pe; [..., 16, 160] per lane or
+    one [16, 160] for all): 31 x (double + PE add), then 32 x (double + PA
+    add + PE add) (reference edp_PolyPointMultiply)."""
+    planes = planes.to(torch.float64)            # converted once for 63 reads
+    q0 = tables.gather_pe(v[..., 0], planes)
+    s = {"x": fe.sub(q0["ypx"], q0["ymx"]), "y": fe.add(q0["ypx"], q0["ymx"]),
+         "z": q0["z2"],
+         "t": fe.mul(q0["t2d"], fe.from_int(ED_DI, device=u.device))}
+    for i in range(1, 32):
+        s = add_pe(double(s), tables.gather_pe(v[..., i], planes))
+    for i in range(32):
+        s = add_pa(double(s), tables.gather_pa(u[..., i]))
+        s = add_pe(s, tables.gather_pe(v[..., 32 + i], planes))
+    return to_affine(s)

@@ -10,6 +10,11 @@ The gathers are indexed by secret digits, so they are one-hot contractions:
 a float64 one-hot matrix times the table. Every entry is below 2^14 and one
 term of each sum is nonzero, so the float64 product is exact; integer
 matmul does not run on CUDA, and the plain versions run on the card too.
+
+A verify context's q_table (a PE table built at run time) is kept as int8
+planes, [..., 16, 8*NLIMBS]: per entry the low 7 bits of its 80 canonical
+limbs, then their high 6 bits, the JAX package's layout byte for byte.
+``gather_pe`` reads it with the same one-hot product (entries <= 127).
 """
 
 import functools
@@ -19,8 +24,10 @@ import torch
 
 from curve25519_tpu_torch import refmodel
 from curve25519_tpu_torch.config import ED_2D, NLIMBS, P, int_to_limbs
+from curve25519_tpu_torch.ops import fe
 
-__all__ = ["folding8_table", "folding4_table", "gather_pa", "gather_pa4"]
+__all__ = ["folding8_table", "folding4_table", "gather_pa", "gather_pa4",
+           "gather_pe", "pe_planes_from_array", "pe_planes_from_canonical"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,3 +93,34 @@ def gather_pa4(cut):
     """cut: [...] int32 index in [0, 16) -> PA point dict from the
     folding-4 table (constant-time)."""
     return _gather(cut, 4)
+
+
+def pe_planes_from_canonical(pe_array):
+    """[..., N, 4, NLIMBS] CANONICAL limbs (digits in [0, 2^13)) -> int8
+    planes [..., N, 8*NLIMBS]: the low 7 bits of the N entries' 80 limbs,
+    then their high 6 bits, per entry."""
+    flat = pe_array.flatten(-2)
+    return torch.cat([(flat & 0x7F).to(torch.int8),
+                      (flat >> 7).to(torch.int8)], -1)
+
+
+def pe_planes_from_array(pe_array):
+    """Int8 planes of a PE table [..., N, 4, NLIMBS] of signed-weak limbs,
+    canonicalized first (the 7-bit split is exact on [0, 2^14) only)."""
+    return pe_planes_from_canonical(fe.canon(pe_array))
+
+
+def gather_pe(idx, planes, nent=16):
+    """idx: [...] int32 in [0, nent); planes: [..., nent, 8*NLIMBS], int8 or
+    already float64 (a caller that gathers many times converts once), with
+    leading axes that broadcast against idx's (one q_table per lane, or one
+    for all). Returns a PE point dict of [..., NLIMBS] int32 limbs; a batched
+    one-hot product, exact as _gather's."""
+    iota = torch.arange(nent, dtype=idx.dtype, device=idx.device)
+    onehot = (idx[..., None] == iota).to(torch.float64)
+    flat = (onehot.unsqueeze(-2) @ planes.to(torch.float64)).squeeze(-2)
+    flat = flat.to(torch.int32)
+    w = 4 * NLIMBS
+    vals = (flat[..., :w] + (flat[..., w:] << 7)).unflatten(-1, (4, NLIMBS))
+    return {"ypx": vals[..., 0, :], "ymx": vals[..., 1, :],
+            "t2d": vals[..., 2, :], "z2": vals[..., 3, :]}

@@ -15,7 +15,8 @@
 // the reads broadcast; the table is packed two 13-bit limbs per 32-bit word
 // (limb 2k in bits 0..15, limb 2k+1 in bits 16..31 of word k, over the 60
 // limbs ypx ++ ymx ++ t2d), 32 words per entry (the last two zero), which
-// halves the selects of a gather.
+// halves the selects of a gather. Verify's digits of s are public, so it
+// reads the one entry it needs by index instead (load_pa, csrc/verify.cu).
 
 #pragma once
 
@@ -34,12 +35,22 @@ struct Ext {
 
 // 1/d mod p (config.ED_DI).
 FE_HD Fe ed_di() {
-  constexpr int32_t t[20] = {6211, 3663, 7603, 484,  606,  2583, 2533, 4872, 7638, 4186,
-                             5081, 7027, 4428, 2832, 3244, 6600, 5333, 5776, 1055, 129};
-  Fe r;
-#pragma unroll
-  for (int i = 0; i < NLIMBS; i++) r.v[i] = t[i];
-  return r;
+  constexpr int32_t t[NLIMBS] = {6211, 3663, 7603, 484,  606,  2583, 2533, 4872, 7638, 4186,
+                                 5081, 7027, 4428, 2832, 3244, 6600, 5333, 5776, 1055, 129};
+  return fe_const(t);
+}
+
+// d and 2d mod p (config.ED_D, config.ED_2D).
+FE_HD Fe ed_d() {
+  constexpr int32_t t[NLIMBS] = {6307, 6859, 4740, 5787, 5982, 3157, 1287, 2472, 4106, 3,
+                                 6694, 3827, 1943, 928,  3635, 8142, 2927, 1905, 219,  164};
+  return fe_const(t);
+}
+
+FE_HD Fe ed_2d() {
+  constexpr int32_t t[NLIMBS] = {4441, 5527, 1289, 3383, 3773, 6315, 2574, 4944, 20,   7,
+                                 5196, 7655, 3886, 1856, 7270, 8092, 5855, 3810, 438,  72};
+  return fe_const(t);
 }
 
 // 2P, 4M + 4S (models/edwards.double).
@@ -70,26 +81,70 @@ FE_HD Ext add_pa(const Ext& p, const Fe& ypx, const Fe& ymx, const Fe& t2d) {
   return {mul(e, f), mul(h, g), mul(g, f), mul(e, h)};
 }
 
-// P + Q for Q in PE form (Y+X, Y-X, 2dT, 2Z), 8M (models/edwards.add_pe).
-// q points at 80 limbs: ypx, ymx, t2d, z2.
-FE_HD Ext add_pe(const Ext& p, const int32_t* q) {
+// PE point (Y+X, Y-X, 2dT, 2Z) (models/edwards.to_pe).
+struct Pe {
   Fe ypx, ymx, t2d, z2;
-#pragma unroll
-  for (int i = 0; i < NLIMBS; i++) {
-    ypx.v[i] = q[i];
-    ymx.v[i] = q[NLIMBS + i];
-    t2d.v[i] = q[2 * NLIMBS + i];
-    z2.v[i] = q[3 * NLIMBS + i];
-  }
-  const Fe a = mul(sub(p.y, p.x), ymx);
-  const Fe b = mul(add(p.y, p.x), ypx);
-  const Fe c = mul(p.t, t2d);
-  const Fe d = mul(p.z, z2);
+};
+
+// P + Q for Q in PE form, 8M (models/edwards.add_pe).
+FE_HD Ext add_pe(const Ext& p, const Pe& q) {
+  const Fe a = mul(sub(p.y, p.x), q.ymx);
+  const Fe b = mul(add(p.y, p.x), q.ypx);
+  const Fe c = mul(p.t, q.t2d);
+  const Fe d = mul(p.z, q.z2);
   const Fe e = sub(b, a);
   const Fe h = add(b, a);
   const Fe f = sub(d, c);
   const Fe g = add(d, c);
   return {mul(e, f), mul(h, g), mul(g, f), mul(e, h)};
+}
+
+// The same with Q as 80 limbs: ypx, ymx, t2d, z2.
+FE_HD Ext add_pe(const Ext& p, const int32_t* q) {
+  Pe e;
+#pragma unroll
+  for (int i = 0; i < NLIMBS; i++) {
+    e.ypx.v[i] = q[i];
+    e.ymx.v[i] = q[NLIMBS + i];
+    e.t2d.v[i] = q[2 * NLIMBS + i];
+    e.z2.v[i] = q[3 * NLIMBS + i];
+  }
+  return add_pe(p, e);
+}
+
+// Reads N words from a 16-byte aligned address (16-byte loads on the
+// device), such as one packed table entry.
+template <int N>
+FE_HD void load_words(uint32_t (&w)[N], const uint32_t* src) {
+#ifdef __CUDA_ARCH__
+  const uint4* row = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int q = 0; q < N / 4; q++) {
+    const uint4 v = row[q];
+    w[4 * q] = v.x;
+    w[4 * q + 1] = v.y;
+    w[4 * q + 2] = v.z;
+    w[4 * q + 3] = v.w;
+  }
+#else
+  for (int k = 0; k < N; k++) w[k] = src[k];
+#endif
+}
+
+// The 60 limbs ypx ++ ymx ++ t2d of packed entry words.
+FE_HD void unpack_pa(Fe& ypx, Fe& ymx, Fe& t2d, const uint32_t (&acc)[kEntryWords]) {
+  int32_t limb[3 * NLIMBS];
+#pragma unroll
+  for (int k = 0; k < 3 * NLIMBS / 2; k++) {
+    limb[2 * k] = (int32_t)(acc[k] & 0xFFFF);
+    limb[2 * k + 1] = (int32_t)(acc[k] >> 16);
+  }
+#pragma unroll
+  for (int i = 0; i < NLIMBS; i++) {
+    ypx.v[i] = limb[i];
+    ymx.v[i] = limb[NLIMBS + i];
+    t2d.v[i] = limb[2 * NLIMBS + i];
+  }
 }
 
 // Constant-time fetch of entry `idx` of a packed table of NENT entries.
@@ -115,18 +170,15 @@ FE_HD void gather(Fe& ypx, Fe& ymx, Fe& t2d, const uint32_t* tbl, int32_t idx) {
     for (int k = 0; k < kEntryWords; k++) acc[k] |= tbl[e * kEntryWords + k] & m;
 #endif
   }
-  int32_t limb[3 * NLIMBS];
-#pragma unroll
-  for (int k = 0; k < 3 * NLIMBS / 2; k++) {
-    limb[2 * k] = (int32_t)(acc[k] & 0xFFFF);
-    limb[2 * k + 1] = (int32_t)(acc[k] >> 16);
-  }
-#pragma unroll
-  for (int i = 0; i < NLIMBS; i++) {
-    ypx.v[i] = limb[i];
-    ymx.v[i] = limb[NLIMBS + i];
-    t2d.v[i] = limb[2 * NLIMBS + i];
-  }
+  unpack_pa(ypx, ymx, t2d, acc);
+}
+
+// Indexed fetch of entry `idx`: for PUBLIC digits only (verify's s), where
+// the address may depend on the digit.
+FE_HD void load_pa(Fe& ypx, Fe& ymx, Fe& t2d, const uint32_t* tbl, int32_t idx) {
+  uint32_t w[kEntryWords];
+  load_words(w, tbl + idx * kEntryWords);
+  unpack_pa(ypx, ymx, t2d, w);
 }
 
 // Folding base multiply S = a*G from NCUTS digits (32 for fold 8 over a

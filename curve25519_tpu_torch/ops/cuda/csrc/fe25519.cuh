@@ -3,8 +3,9 @@
 //
 // Replaces the in-kernel field core of the TPU package,
 // curve25519_tpu/ops/pallas/fe_tile.py (t_add, t_sub, t_neg, t_mul, t_sqr,
-// t_mul_small_add, t_select, t_inv, t_canon, t_norm_to_bytes, t_to_bytes,
-// t_pack_point), and the byte->limb
+// t_mul_small_add, t_select, t_inv, t_pow2523, t_is_zero, t_canon,
+// t_norm_to_bytes, t_to_bytes, t_pack_point, and verify_kernel._t_sqrt_ratio),
+// and the byte->limb
 // decode sc_tile.limbs_from_byte_rows. Where those work on [20, 8, 128] tiles
 // of 1024 lanes, every function here works on the 20 limbs of ONE lane, held
 // in registers: the CUDA kernel runs one lane per thread.
@@ -159,12 +160,12 @@ FE_HD Fe sqr_times(Fe x, int n) {
   return x;
 }
 
-// 1/x = x^(p-2) via the DJB chain (ops/fe.py _chain_2_250, inv):
-// 254 squarings and 11 multiplies.
-FE_HD Fe inv(const Fe& x) {
+// x^(2^250 - 1), with x^11 in x11: the shared prefix of the p-2 and (p-5)/8
+// DJB chains (ops/fe.py _chain_2_250, fe_tile._t_chain_2_250).
+FE_HD Fe chain_2_250(const Fe& x, Fe& x11) {
   Fe x2 = sqr(x);
   Fe x9 = mul(sqr(sqr(x2)), x);
-  Fe x11 = mul(x9, x2);
+  x11 = mul(x9, x2);
   Fe x31 = mul(sqr(x11), x9);                 // 2^5 - 1
   Fe t = mul(sqr_times(x31, 5), x31);         // 2^10 - 1
   Fe x10 = t;
@@ -174,8 +175,21 @@ FE_HD Fe inv(const Fe& x) {
   Fe x50 = t;
   t = mul(sqr_times(t, 50), t);               // 2^100 - 1
   t = mul(sqr_times(t, 100), t);              // 2^200 - 1
-  t = mul(sqr_times(t, 50), x50);             // 2^250 - 1
+  return mul(sqr_times(t, 50), x50);          // 2^250 - 1
+}
+
+// 1/x = x^(p-2): 254 squarings and 11 multiplies (ops/fe.py inv).
+FE_HD Fe inv(const Fe& x) {
+  Fe x11;
+  const Fe t = chain_2_250(x, x11);
   return mul(sqr_times(t, 5), x11);           // (2^250 - 1) * 2^5 + 11
+}
+
+// x^(2^252 - 3) = x^((p-5)/8) (ops/fe.py pow2523, fe_tile.t_pow2523).
+FE_HD Fe pow2523(const Fe& x) {
+  Fe x11;
+  const Fe t = chain_2_250(x, x11);
+  return mul(sqr_times(t, 2), x);             // (2^250 - 1) * 4 + 1
 }
 
 // Exact sequential signed carry: d gets digits in [0, 2^13); returns the
@@ -209,6 +223,45 @@ FE_HD Fe canon(const Fe& x) {
   for (int i = 0; i < NLIMBS; i++) t.v[i] = td.v[i] - p_limb(i);
   const int32_t uc = carry_seq(ud, t);       // -1 iff value < p
   return select(uc + 1, ud, td);
+}
+
+// 1 where x == 0 (mod p), else 0 (ops/fe.py is_zero, fe_tile.t_is_zero).
+FE_HD int32_t is_zero(const Fe& x) {
+  const Fe c = canon(x);
+  int32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < NLIMBS; i++) acc |= c.v[i];
+  return acc == 0;
+}
+
+// A constant's limbs.
+FE_HD Fe fe_const(const int32_t (&t)[NLIMBS]) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < NLIMBS; i++) r.v[i] = t[i];
+  return r;
+}
+
+// sqrt(-1) mod p (config.SQRT_M1).
+FE_HD Fe sqrt_m1() {
+  constexpr int32_t t[NLIMBS] = {176,  4213, 2514, 7222, 3150, 4668, 5311, 213,  792,  6522,
+                                 5609, 7159, 2451, 1664, 3245, 7137, 4033, 1026, 201,  87};
+  return fe_const(t);
+}
+
+// x = sqrt(u/v) where u/v is a square, with ok = 1 there and 0 elsewhere
+// (ops/fe.py sqrt_ratio, verify_kernel._t_sqrt_ratio): x = u v^3 (u v^7)^((p-5)/8),
+// then the sqrt(-1) fix-up, both checks by is_zero.
+FE_HD Fe sqrt_ratio(const Fe& u, const Fe& v, int32_t& ok) {
+  const Fe v2 = sqr(v);
+  const Fe v3 = mul(v2, v);
+  const Fe a = mul(u, v3);                    // u v^3
+  const Fe b = mul(a, sqr(v2));               // u v^7
+  Fe x = mul(pow2523(b), a);
+  const int32_t good = is_zero(sub(mul(sqr(x), v), u));
+  x = select(good, x, mul(x, sqrt_m1()));
+  ok = good | is_zero(sub(mul(sqr(x), v), u));
+  return x;
 }
 
 // Normalized limbs (digits in [0, 2^13), value < 2^256) -> little-endian

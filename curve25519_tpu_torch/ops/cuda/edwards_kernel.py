@@ -19,7 +19,7 @@ import torch
 
 from curve25519_tpu_torch.config import NLIMBS
 from curve25519_tpu_torch.models import edwards, tables
-from curve25519_tpu_torch.ops import codec, fe
+from curve25519_tpu_torch.ops import fe
 from curve25519_tpu_torch.ops.cuda import (
     as_limbs, build, flatten_batch, use_cuda,
 )
@@ -57,7 +57,7 @@ def base_mult_plain(cut, zr=None, bp=None, mode="affine", nfolds=8):
         x, y = edwards.to_affine(s)
         if mode == "affine":
             return x, y
-        return codec.pack_point(fe.to_bytes(y), fe.canon(x)[..., 0] & 1)
+        return edwards.pack(x, y)
     u = fe.mul(fe.add(s["z"], s["y"]), fe.inv(fe.sub(s["z"], s["y"])))
     return (u, u) if mode == "mont_u" else fe.to_bytes(u)
 

@@ -1,7 +1,9 @@
 """Moving byte and limb tensors between the JAX package and the port.
 
 Both packages use the same layouts: ``[..., 32]`` uint8 byte strings and
-``[..., 20]`` int32 limbs; a blinding context is the same dict of them.
+``[..., 20]`` int32 limbs; a blinding context is the same dict of them, and
+a verify context the same dict of pk bytes, int8 q_table planes and bool ok
+flags.
 State crosses as numpy arrays (``np.asarray`` of a JAX array on one side);
 the dtype is kept, so equal arrays mean equal bytes or equal limbs.
 """
@@ -9,18 +11,20 @@ the dtype is kept, so equal arrays mean equal bytes or equal limbs.
 import numpy as np
 import torch
 
-__all__ = ["from_numpy", "to_numpy", "blinding_from_jax"]
+__all__ = ["from_numpy", "to_numpy", "blinding_from_jax",
+           "verify_ctx_from_jax"]
 
-_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int32): torch.int32}
+_DTYPES = (np.uint8, np.int32, np.int8, np.bool_)
 
 
 def from_numpy(arr, device="cpu"):
-    """A uint8 or int32 numpy array (or anything np.asarray accepts, such as
-    a JAX array) as a torch tensor of the same dtype on `device`."""
+    """A uint8, int32, int8 or bool numpy array (or anything np.asarray
+    accepts, such as a JAX array) as a torch tensor of the same dtype on
+    `device`."""
     arr = np.asarray(arr)
     if arr.dtype not in _DTYPES:
-        raise TypeError("expected uint8 bytes or int32 limbs, got %s"
-                        % arr.dtype)
+        raise TypeError("expected uint8 bytes, int32 limbs, int8 planes or "
+                        "bool flags, got %s" % arr.dtype)
     # np.array copies: the tensor never shares a (possibly read-only) buffer
     return torch.from_numpy(np.array(arr)).to(device)
 
@@ -40,3 +44,10 @@ def blinding_from_jax(ctx, device="cpu"):
     out.update({k: ctx[k] for k in ("_b", "_zr_bytes", "_bp_point")
                 if k in ctx})
     return out
+
+
+def verify_ctx_from_jax(ctx, device="cpu"):
+    """A verify context of the JAX package (curve25519_tpu.models.ed25519.
+    verify_init: pk uint8, planes int8, ok bool) as the port's on
+    `device`."""
+    return {k: from_numpy(ctx[k], device) for k in ("pk", "planes", "ok")}

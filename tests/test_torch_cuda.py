@@ -20,9 +20,9 @@ from curve25519_tpu.config import P
 
 from curve25519_tpu_torch.config import int_to_limbs
 from curve25519_tpu_torch.models import blinding, ed25519, montgomery, x25519
-from curve25519_tpu_torch.ops import fold, sha512
+from curve25519_tpu_torch.ops import fold, sc, sha512
 from curve25519_tpu_torch.ops.cuda import (
-    edwards_kernel, ladder_kernel, sha512_kernel, sign_kernel,
+    edwards_kernel, ladder_kernel, sha512_kernel, sign_kernel, verify_kernel,
 )
 
 pytestmark = pytest.mark.cuda
@@ -155,3 +155,56 @@ def test_keygen_and_sign_kernels_equal_plain(dev, rng):
     assert [bytes(r) for r in got.cpu().numpy()] == [
         refmodel.ed_sign(bytes(p.cpu().tolist()), bytes(m[:n].cpu().tolist()))
         for p, m, n in zip(priv[:4], long, n_long.tolist())]
+
+
+def test_verify_kernels_equal_plain(dev, rng):
+    n = 300
+    pk, _ = ed25519.create_keypair(on(dev, rng.integers(0, 256, (n, 32),
+                                                         dtype=np.uint8)))
+    pk[n // 2:] = on(dev, rng.integers(0, 256, (n - n // 2, 32),
+                                       dtype=np.uint8))   # half off the curve
+    u = fold.cut8_bytes(on(dev, rng.integers(0, 256, (n, 32), dtype=np.uint8)))
+    v = fold.cut4_limbs(sc.from_digest(on(dev, rng.integers(
+        0, 256, (n, 64), dtype=np.uint8))))
+    before = dict(verify_kernel.launches)
+    planes, ok = verify_kernel.verify_init(pk)
+    want_planes, want_ok = verify_kernel.verify_init_plain(pk)
+    assert torch.equal(planes, want_planes) and torch.equal(ok, want_ok)
+    assert 0 < int(ok.sum()) < n
+    r = verify_kernel.poly_mult(u, v, planes)
+    assert torch.equal(r, verify_kernel.poly_mult_plain(u, v, planes))
+    shared = verify_kernel.poly_mult(u, v, planes[n - 1])
+    assert torch.equal(shared, verify_kernel.poly_mult_plain(u, v,
+                                                             planes[n - 1]))
+    assert torch.equal(shared[n - 1], r[n - 1])
+    r1, ok1 = verify_kernel.verify_oneshot(pk, u, v)
+    torch.cuda.synchronize()
+    assert torch.equal(r1, r) and torch.equal(ok1, ok)
+    assert verify_kernel.launches == {k: before[k] + 1 for k in before}
+
+
+def test_verify_paths_on_the_card(dev, rng):
+    n = 130
+    pk, priv = ed25519.create_keypair(on(dev, rng.integers(0, 256, (n, 32),
+                                                            dtype=np.uint8)))
+    msg = on(dev, rng.integers(0, 256, (n, 1100), dtype=np.uint8))
+    lengths = on(dev, rng.integers(0, 1101, n).astype(np.int32))
+    sig = ed25519.sign(priv, msg, lengths)
+    sig[3, 0] ^= 1
+    sig[4, 40] ^= 1
+    want = torch.ones(n, dtype=torch.bool, device=dev)
+    want[3:5] = False
+    ctx = ed25519.verify_init(pk)
+    assert torch.equal(ed25519.verify(sig, pk, msg, lengths), want)
+    assert torch.equal(ed25519.verify_check(ctx, sig, msg, lengths), want)
+    assert torch.equal(ed25519.verify_tablefree(sig, pk, msg, lengths), want)
+    one = ed25519.sign(priv[0], msg, lengths)
+    got = ed25519.verify_check(ed25519.verify_init(pk[0]), one, msg, lengths)
+    assert bool(got.all())
+    host = [refmodel.ed_verify(bytes(s.cpu().tolist()), bytes(p.cpu().tolist()),
+                               bytes(m[:k].cpu().tolist()))
+            for s, p, m, k in zip(sig[:6], pk[:6], msg[:6], lengths[:6].tolist())]
+    assert host == want[:6].tolist()
+    numpy_in = ed25519.verify(*(t.cpu().numpy() for t in (sig, pk, msg,
+                                                           lengths)))
+    assert numpy_in.is_cuda and torch.equal(numpy_in, want)

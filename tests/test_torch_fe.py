@@ -49,6 +49,13 @@ def as_torch(*arrs):
     return [from_numpy(a) for a in arrs]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _free_xla_executables():
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(20261)

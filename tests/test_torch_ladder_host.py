@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from curve25519_tpu import refmodel
@@ -37,6 +38,13 @@ OPS = {"add": 0, "sub": 1, "neg": 2, "mul": 3, "sqr": 4, "mul_small_add": 5,
        "canon": 6, "inv": 7, "to_bytes": 8, "from_bytes": 9}
 
 EDGE_U = [0, 1, P, P + 1, 2**255 - 1, 1 | 1 << 255]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _free_xla_executables():
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
 
 
 @pytest.fixture(scope="module")

@@ -52,6 +52,13 @@ EDGE_U = [0, 1, P, P + 1, 2**255 - 1, 1 | 1 << 255]
 _jax_shared = jax.jit(jx25519.create_shared_key)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _free_xla_executables():
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
 def hx(*hexes):
     return torch.tensor([list(bytes.fromhex(h)) for h in hexes],
                         dtype=torch.uint8)
@@ -176,7 +183,7 @@ def test_port_imports_no_jax():
         "models.tables", "models.edwards", "models.blinding",
         "models.ed25519", "models.x25519", "ops.cuda.sha512_kernel",
         "ops.cuda.edwards_kernel", "ops.cuda.sign_kernel",
-        "utils.interop", "utils.profiling")]
+        "ops.cuda.verify_kernel", "utils.interop", "utils.profiling")]
     code = (
         "import importlib, sys\n"
         "import torch\n"
@@ -186,7 +193,8 @@ def test_port_imports_no_jax():
         "k = torch.tensor(list(bytes.fromhex('%s')), dtype=torch.uint8)\n"
         "u = torch.tensor(list(bytes.fromhex('%s')), dtype=torch.uint8)\n"
         "assert bytes(x25519.create_shared_key(u, k).tolist()).hex() == '%s'\n"
-        "pk, _ = ed25519.create_keypair(k)\n"
+        "pk, priv = ed25519.create_keypair(k)\n"
+        "assert bool(ed25519.verify(ed25519.sign(priv, u), pk, u))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'curve25519_tpu']\n"
         "assert not bad, bad\n" % (modules, V1_K, V1_U, V1_OUT))
