@@ -94,7 +94,7 @@ KERNELS = {
                     ("poly_kernel",)),
     "poly_shared_kernel": ("verify.cu", PALLAS + "verify_kernel.py:85",
                            ("poly_shared_kernel",)),
-    "oneshot_kernel": ("verify.cu", PALLAS + "verify_kernel.py:320",
+    "oneshot_kernel": ("oneshot.cu", PALLAS + "verify_kernel.py:320",
                        ("oneshot_kernel",)),
 }
 
@@ -137,6 +137,8 @@ ED_VECS = [
 # benchmarks/tpu_vectors.py x25519_edge_u: u values with key 0x07 * 32
 EDGE_U = [0, 1, P, P + 1, 2**255 - 1, 1 | 1 << 255]
 SHA_LENGTHS = [0, 1, 111, 112, 127, 128, 129, 239, 240]
+# ragged batch sizes: one lane, partial warps (31, 33), partial blocks
+RAGGED = (1, 31, 33, 127, 129, 1000)
 
 
 def fail(msg):
@@ -422,18 +424,23 @@ class Counts:
 # Bounds: the least time the card could take for the work of one call.
 # Per lane the kernels issue int32 multiply-adds (IMAD, on the FMA pipe) for
 # the limb products and plain int32 logic, shift and add operations (on the
-# ALU pipe) for the table selects and SHA-512 rounds. Counted from the
-# algorithm and calibrated on the ladder's SASS (PR 1: a field multiply is
-# 422 IMAD with its reduction, a squaring 232, a small-constant multiply
-# 22): each pipe issues 64 lanes per clock per SM. The carries, moves and
-# loads are not counted, so the bound is below the true least time. Bytes:
-# each input read once and each output written once at 3.35 TB/s.
+# ALU pipe) for the SHA-512 rounds. Counted from the algorithm and
+# calibrated on the ladder's SASS (a field multiply is 422 IMAD with its
+# reduction, a squaring 232, a small-constant multiply 22): each pipe
+# issues 64 lanes per clock per SM. A constant-time gather of a table entry
+# is counted as what the card needs at least for it: the exact int8 one-hot
+# product [lanes x entries] x [entries x 120 bytes] at the tensor cores'
+# int8 rate (1,979 TOP/s dense). The carries, moves and loads are not
+# counted, so the bound is below the true least time. Bytes: each input
+# read once and each output written once at 3.35 TB/s.
 # ---------------------------------------------------------------------------
 IMAD_MUL, IMAD_SQR, IMAD_SMALL = 422, 232, 22
 IMAD_SC_MUL = 400 + 399 + 20 + 10       # products, FOLD_SC, 2^260, delta
 IMAD_SC_REDUCE = 399 + 20 + 10           # from_digest's reduce40
 SHA_BLOCK_ALU = 80 * 32 + 64 * 22        # 64-bit rounds and schedule
+ENTRY_BYTES = 120                        # 60 limbs, a low and a high byte
 HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
 
 
 def _inv_imad():
@@ -441,34 +448,35 @@ def _inv_imad():
 
 
 def basemult_ops(nfolds, use_bp=False):
-    """(IMAD, ALU) per lane of one base multiply with its epilogue (any
-    mode: one inversion and two multiplies)."""
+    """(IMAD, ALU, tensor-core int8 operations) per lane of one base
+    multiply with its epilogue (any mode: one inversion and two
+    multiplies)."""
     steps = 256 // nfolds - 1
     muls = 4 + steps * 11 + (8 if use_bp else 0) + 2
     sqrs = steps * 4
     gathers = steps + 1
-    alu = gathers * (1 << nfolds) * 31    # 30 masked ORs and 1 compare
-    return muls * IMAD_MUL + sqrs * IMAD_SQR + _inv_imad(), alu
+    onehot = gathers * 2 * (1 << nfolds) * ENTRY_BYTES   # multiply-adds
+    return muls * IMAD_MUL + sqrs * IMAD_SQR + _inv_imad(), 0, onehot
 
 
 def ladder_ops():
     step = 5 * IMAD_MUL + 4 * IMAD_SQR + IMAD_SMALL
     start = 3 * IMAD_MUL + 2 * IMAD_SQR + IMAD_SMALL
-    return 254 * step + start + _inv_imad(), 0
+    return 254 * step + start + _inv_imad(), 0, 0
 
 
 def keygen_ops(use_bl=False):
-    imad, alu = basemult_ops(8, use_bp=use_bl)
+    imad, alu, onehot = basemult_ops(8, use_bp=use_bl)
     if use_bl:
         imad += 10 + 10                   # the mod and add of a + bl
-    return imad, alu + SHA_BLOCK_ALU
+    return imad, alu + SHA_BLOCK_ALU, onehot
 
 
 def sign_ops(blocks, use_bl=False):
     """blocks: SHA-512 blocks of the two message hashes (data-dependent)."""
-    imad, alu = basemult_ops(8, use_bp=use_bl)
+    imad, alu, onehot = basemult_ops(8, use_bp=use_bl)
     imad += 2 * IMAD_SC_REDUCE + IMAD_SC_MUL + 20
-    return imad, alu + (1 + blocks) * SHA_BLOCK_ALU
+    return imad, alu + (1 + blocks) * SHA_BLOCK_ALU, onehot
 
 
 def verify_init_ops():
@@ -476,7 +484,7 @@ def verify_init_ops():
     PE conversions and 11 PE adds."""
     muls = 20 + 192 * 4 + 15 + 11 * 8
     sqrs = 256 + 192 * 4
-    return muls * IMAD_MUL + sqrs * IMAD_SQR, 0
+    return muls * IMAD_MUL + sqrs * IMAD_SQR, 0, 0
 
 
 def poly_ops():
@@ -484,7 +492,7 @@ def poly_ops():
     the start's and the epilogue's multiplies and one inversion."""
     muls = 63 * 4 + 63 * 8 + 32 * 7 + 3
     sqrs = 63 * 4
-    return muls * IMAD_MUL + sqrs * IMAD_SQR + _inv_imad(), 0
+    return muls * IMAD_MUL + sqrs * IMAD_SQR + _inv_imad(), 0, 0
 
 
 def oneshot_ops():
@@ -492,10 +500,12 @@ def oneshot_ops():
 
 
 def bound_ms(lanes_ops, nbytes):
-    """lanes_ops: summed (IMAD, ALU) over the call's lanes."""
+    """lanes_ops: summed (IMAD, ALU, tensor-core int8 operations) over the
+    call's lanes."""
     props = torch.cuda.get_device_properties(0)
     rate = props.multi_processor_count * 64 * max_sm_clock_hz()
-    t_ops = max(lanes_ops) / rate
+    imad, alu, onehot = lanes_ops
+    t_ops = max(imad / rate, alu / rate, onehot / INT8_OPS_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -692,7 +702,7 @@ def phase_ed_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
                      "fold %d %s bp=%s" % (nfolds, mode, bp is not None))
     cut = fold.cut8_bytes(sk)
     full = ek.base_mult(cut, zr=zr, mode="pk")
-    for n in (1, 127, 129, 1000):
+    for n in RAGGED:
         hold("basemult_kernel", ek.base_mult(cut[:n], zr=zr, mode="pk"),
              full[:n], "ragged %d" % n)
     hold("basemult_kernel", ek.base_mult(cut[5], zr=zr, mode="pk"), full[5],
@@ -710,7 +720,7 @@ def phase_ed_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
         got = sha512.sha512(msg, lengths, prefix=pre)
         hold("sha512_kernel", got, sha512.sha512_plain(msg, lengths, prefix=pre),
              "random lengths, prefix=%s" % (pre is not None))
-        for n in (1, 127, 129, 1000):
+        for n in RAGGED:
             hold("sha512_kernel", sha512.sha512(
                 msg[:n], lengths[:n], prefix=None if pre is None else pre[:n]),
                 got[:n], "ragged %d" % n)
@@ -726,7 +736,7 @@ def phase_ed_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
     hold("keygen_kernel", pk, sgk.keygen_plain(sk, zr=zr), "random lanes")
     hold("keygen_kernel", sgk.keygen(sk, zr=ctx["zr"], bl=ctx["bl"],
                                      bp=ctx["bp"]), pk, "blinded")
-    for n in (1, 127, 129, 1000):
+    for n in RAGGED:
         hold("keygen_kernel", sgk.keygen(sk[:n], zr=zr), pk[:n],
              "ragged %d" % n)
     hold("keygen_kernel", sgk.keygen(sk[9], zr=zr), pk[9], "rank-1")
@@ -746,9 +756,12 @@ def phase_ed_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
         hold("sign_kernel", sgk.sign_fused(priv, m, ml, zr=ctx["zr"],
                                            bl=ctx["bl"], bp=ctx["bp"]), sig,
              "%d-byte messages, blinded" % L)
-        for n in (1, 127, 129, 1000):
+        for n in RAGGED:
             hold("sign_kernel", sgk.sign_fused(priv[:n], m[:n], ml[:n], zr=zr),
                  sig[:n], "ragged %d" % n)
+            hold("sign_kernel", sgk.sign_fused(
+                priv[:n], m[:n], ml[:n], zr=ctx["zr"], bl=ctx["bl"],
+                bp=ctx["bp"]), sig[:n], "ragged %d, blinded" % n)
     hold("sign_kernel", sgk.sign_fused(priv[3], m[3], ml[3], zr=zr), sig[3],
          "rank-1")
     hold("sign_kernel", sgk.sign_fused(priv[0], m[:16], ml[:16], zr=zr),
@@ -766,9 +779,9 @@ def phase_ed_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
           "and 4 x 4 modes x (no BP, BP); SHA-512 random lengths and "
           "padding edges, prefix; keygen and sign (64 and 943 bytes fused, "
           "944 composed) plain and blinded with "
-          "blinding_init(b'chip-smoke'); ragged 1/127/129/1000, rank-1, "
-          "broadcast: byte-equal (max_abs_err %s)"
-          % (lanes, errs))
+          "blinding_init(b'chip-smoke'); ragged %s, rank-1, broadcast: "
+          "byte-equal (max_abs_err %s)"
+          % (lanes, "/".join(map(str, RAGGED)), errs))
     return errs
 
 
@@ -916,7 +929,7 @@ def phase_ed_main(dev, rng, card, counts, batch=MAIN_BATCH):
             lambda c: ek.base_mult_plain(c, mode="u_bytes", nfolds=4), (cut4,),
             basemult_ops(4), batch * (256 + 32)),
         "sha512_kernel": (shk.sha512_blocks, shk.sha512_blocks_plain,
-                          (words, nblocks), (0, SHA_BLOCK_ALU),
+                          (words, nblocks), (0, SHA_BLOCK_ALU, 0),
                           batch * (128 + 4 + 64)),
         "keygen_kernel": (
             lambda s: sgk.keygen(s, zr=zr),
@@ -940,8 +953,8 @@ def phase_ed_main(dev, rng, card, counts, batch=MAIN_BATCH):
 
 
 def time_kernels(cases, batch, card, phase):
-    """Per case name: (kernel wrapper, plain version, args, (IMAD, ALU) per
-    lane, bytes[, args of the plain version's warm-up call, default the
+    """Per case name: (kernel wrapper, plain version, args, (IMAD, ALU,
+    tensor-core int8 operations) per lane, bytes[, args of the plain version's warm-up call, default the
     first 8 rows]). Times the wrapper (best of 3 x 3 after a warm-up) and
     one call of the plain version on the same args, holds the two equal and
     returns each kernel's row for the JSON line."""
@@ -1027,7 +1040,7 @@ def phase_verify_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
     hold("oneshot_kernel", one, vk.verify_oneshot_plain(pk, u, v),
          "%d lanes" % lanes)
     hold("oneshot_kernel", one, (r, ok), "one-shot != the two phases")
-    for n in (1, 127, 129, 1000):
+    for n in RAGGED:
         hold("verify_init_kernel", vk.verify_init(pk[:n]),
              (planes[:n], ok[:n]), "ragged %d" % n)
         hold("poly_kernel", vk.poly_mult(u[:n], v[:n], planes[:n]), r[:n],
@@ -1084,11 +1097,11 @@ def phase_verify_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
     torch.cuda.synchronize()
     print("phase 9 verify kernels vs plain: %d lanes (%d keys decode, %d "
           "edge keys), Verify_Init, poly with per-lane and shared q_tables, "
-          "one-shot == the two phases, ragged 1/127/129/1000, rank-1, "
-          "broadcast: byte-equal (max_abs_err %s); verify, verify_check "
-          "(per-lane, shared) == the table-free oracle on %d signatures of "
+          "one-shot == the two phases, ragged %s, rank-1, broadcast: "
+          "byte-equal (max_abs_err %s); verify, verify_check (per-lane, "
+          "shared) == the table-free oracle on %d signatures of "
           "0-1,200-byte messages, valid and tampered"
-          % (lanes, n_ok, len(EDGE_PK), errs, m))
+          % (lanes, n_ok, len(EDGE_PK), "/".join(map(str, RAGGED)), errs, m))
     return errs
 
 

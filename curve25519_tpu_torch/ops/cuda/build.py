@@ -3,7 +3,7 @@ curve25519_tpu/native/bindings.py: a plain C interface, compiled on demand,
 loaded with ctypes).
 
 - ``load_cuda(name)`` compiles one library (``ladder``, ``basemult``,
-  ``sha512``, ``sign`` or ``verify``: ``csrc/<name>.cu``) with nvcc for sm_90a into
+  ``sha512``, ``sign``, ``verify`` or ``oneshot``: ``csrc/<name>.cu``) with nvcc for sm_90a into
   ``_build/`` (git-ignored) the first time it is called, and again whenever a
   source is newer than the library. ``build_cuda()`` compiles every library
   anew, one nvcc process per source, all started together, and returns per
@@ -36,8 +36,9 @@ BUILD_DIR = _DIR / "_build"
 
 _vp, _i64, _int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
-# library -> (its kernels, as named in ptxas's report; its launch entries
-# with their argument types)
+# library -> (its kernels, as named in ptxas's report; its entries, each
+# returning an int, with their argument types; launch entries end with the
+# stream)
 LIBRARIES = {
     "ladder": (("x25519_ladder_kernel",),
                {"x25519_ladder_launch": [_vp, _vp, _vp, _vp, _i64, _vp]}),
@@ -51,12 +52,13 @@ LIBRARIES = {
                                 _vp, _i64, _vp],
               "sign_launch": [_vp, _vp, _vp, _i64, _vp, _vp, _i64, _vp, _vp,
                               _i64, _vp, _i64, _vp, _i64, _vp, _i64, _vp]}),
-    "verify": (("verify_init_kernel", "poly_kernel", "poly_shared_kernel",
-                "oneshot_kernel"),
+    "verify": (("verify_init_kernel", "poly_kernel", "poly_shared_kernel"),
                {"verify_init_launch": [_vp, _vp, _vp, _i64, _vp],
-                "poly_launch": [_vp, _vp, _vp, _vp, _int, _vp, _i64, _vp],
-                "oneshot_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
-                                   _vp]}),
+                "poly_launch": [_vp, _vp, _vp, _vp, _int, _vp, _i64, _vp]}),
+    "oneshot": (("oneshot_kernel",),
+                {"oneshot_scratch_rows": [_i64, _int],
+                 "oneshot_launch": [_vp, _vp, _vp, _i64, _vp, _vp, _vp, _vp,
+                                    _i64, _vp]}),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -204,14 +206,18 @@ def load_host(so_path):
     lib.sign_host.argtypes = [_vp, _vp, _vp, _i64, _vp, _vp, _i64, _vp, _vp,
                               _i64, _vp, _i64, _vp, _i64, _vp, _i64]
     lib.sign_host.restype = None
+    lib.gather_host.argtypes = [_int, _vp, _vp, _vp, _i64]
+    lib.gather_host.restype = None
     lib.sc25519_op_host.argtypes = [_int, _vp, _vp, _vp, _vp, _i64]
     lib.sc25519_op_host.restype = ctypes.c_int
     lib.verify_init_host.argtypes = [_vp, _vp, _vp, _i64]
     lib.verify_init_host.restype = None
     lib.poly_host.argtypes = [_vp, _vp, _vp, _vp, _int, _vp, _i64]
     lib.poly_host.restype = None
-    lib.oneshot_host.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _i64]
+    lib.oneshot_host.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64]
     lib.oneshot_host.restype = None
+    lib.oneshot_scratch_rows.argtypes = [_i64, _int]
+    lib.oneshot_scratch_rows.restype = ctypes.c_int
     lib.sqrt_ratio_host.argtypes = [_vp, _vp, _vp, _vp, _i64]
     lib.sqrt_ratio_host.restype = None
     return lib

@@ -20,8 +20,8 @@
 // masked ORs per step, ~260 K over the multiply. What the design does about
 // it: the lookup reads a table packed two limbs per word from shared memory
 // (one copy per block, broadcast reads, 16-byte loads), which halves the
-// selects against 60 separate limbs. An int8 one-hot mma.sync gather is
-// later work.
+// selects against 60 separate limbs. The sign kernel's int8 one-hot
+// mma.sync gather (gather_mma.cuh) is the next step for this kernel.
 //
 // Built by curve25519_tpu_torch/ops/cuda/build.py: with nvcc into a shared
 // library that ctypes loads (basemult_launch), and with g++ for the CPU
@@ -43,7 +43,7 @@ template <int NFOLDS>
 FE_HD void basemult_lane(void* out, const int32_t* cut, const int32_t* zr,
                          const int32_t* bp, const uint32_t* tbl, int mode) {
   const Fe z0 = zr ? load_fe(zr) : one();
-  Ext s = base_mult<1 << NFOLDS, 256 / NFOLDS>(cut, z0, tbl);
+  Ext s = base_mult<256 / NFOLDS>(cut, z0, ScanGather<1 << NFOLDS>{tbl});
   if (bp) s = add_pe(s, bp);
   // one inversion: of Z for the affine and pk epilogues, of Z - Y for u
   const bool is_u = mode == MODE_MONT_U || mode == MODE_U_BYTES;

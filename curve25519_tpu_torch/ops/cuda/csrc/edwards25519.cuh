@@ -15,8 +15,10 @@
 // the reads broadcast; the table is packed two 13-bit limbs per 32-bit word
 // (limb 2k in bits 0..15, limb 2k+1 in bits 16..31 of word k, over the 60
 // limbs ypx ++ ymx ++ t2d), 32 words per entry (the last two zero), which
-// halves the selects of a gather. Verify's digits of s are public, so it
-// reads the one entry it needs by index instead (load_pa, csrc/verify.cu).
+// halves the selects of a gather. The sign kernel does the same read as an
+// int8 one-hot product on the tensor cores (gather_mma.cuh). Verify's
+// digits of s are public, so it reads the one entry it needs by index
+// instead (load_pa, csrc/verify_lane.cuh).
 
 #pragma once
 
@@ -173,6 +175,15 @@ FE_HD void gather(Fe& ypx, Fe& ymx, Fe& t2d, const uint32_t* tbl, int32_t idx) {
   unpack_pa(ypx, ymx, t2d, acc);
 }
 
+// gather<NENT> over one packed table, as the gather policy of base_mult.
+template <int NENT>
+struct ScanGather {
+  const uint32_t* tbl;
+  FE_HD void operator()(Fe& ypx, Fe& ymx, Fe& t2d, int32_t idx) const {
+    gather<NENT>(ypx, ymx, t2d, tbl, idx);
+  }
+};
+
 // Indexed fetch of entry `idx`: for PUBLIC digits only (verify's s), where
 // the address may depend on the digit.
 FE_HD void load_pa(Fe& ypx, Fe& ymx, Fe& t2d, const uint32_t* tbl, int32_t idx) {
@@ -185,11 +196,13 @@ FE_HD void load_pa(Fe& ypx, Fe& ymx, Fe& t2d, const uint32_t* tbl, int32_t idx) 
 // 256-entry table, 64 for fold 4 over 16 entries): the randomized start
 // (2xR : 2yR : 2R : 2xyR) from entry cut[0], then (NCUTS - 1) x (double +
 // table add) (models/edwards._base_mult_folded). `cut` is read at indices
-// that depend only on the step counter.
-template <int NENT, int NCUTS>
-FE_HD Ext base_mult(const int32_t* cut, const Fe& zr, const uint32_t* tbl) {
+// that depend only on the step counter. `gather(ypx, ymx, t2d, digit)` reads
+// a table entry in constant time: ScanGather, or the sign kernel's
+// tensor-core MmaGather (gather_mma.cuh).
+template <int NCUTS, class Gather>
+FE_HD Ext base_mult(const int32_t* cut, const Fe& zr, const Gather& gather) {
   Fe ypx, ymx, t2d;
-  gather<NENT>(ypx, ymx, t2d, tbl, cut[0]);
+  gather(ypx, ymx, t2d, cut[0]);
   const Fe x2 = sub(ypx, ymx);       // 2x
   const Fe y2 = add(ypx, ymx);       // 2y
   const Fe t2 = mul(t2d, ed_di());   // 2xy = t2d / d
@@ -197,7 +210,7 @@ FE_HD Ext base_mult(const int32_t* cut, const Fe& zr, const uint32_t* tbl) {
 #pragma unroll 1
   for (int i = 1; i < NCUTS; i++) {
     s = dbl(s);
-    gather<NENT>(ypx, ymx, t2d, tbl, cut[i]);
+    gather(ypx, ymx, t2d, cut[i]);
     s = add_pa(s, ypx, ymx, t2d);
   }
   return s;

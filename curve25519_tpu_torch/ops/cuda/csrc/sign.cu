@@ -16,18 +16,30 @@
 // prefix half of md, enc(R) and the pk. The mod-l code is sc25519.cuh
 // (sc_tile), the point code edwards25519.cuh.
 //
-// What bounds it on this card: int32 issue, as for basemult.cu (the base
-// multiply and its constant-time table reads are ~95% of a lane's work; the
-// three SHA-512 runs and the mod-l steps the rest). What the design does
-// about it: one SHA compression function and one rolled loop over blocks
-// and over fold steps keep the code and the registers small; the 8-fold
-// digits live in a per-lane array indexed by the step counter only.
+// What bounds it on this card: int32 multiply-add issue (the base
+// multiply's ~240 K IMADs per lane; the three SHA-512 runs and the mod-l
+// steps add ALU work). What the design does about it: one SHA compression
+// function and one rolled loop over blocks and over fold steps keep the code
+// and the registers small; the 8-fold digits live in a per-lane array
+// indexed by the step counter only.
+//
+// The sign kernel's 32 constant-time table reads run on the tensor cores
+// (gather_mma.cuh): per warp and read, 240 int8 one-hot mma.sync products
+// over the table in shared memory, in B-fragment order, where the masked
+// scan of every entry (gather<256>, which keygen_kernel keeps) costs ~8 K ALU
+// operations per lane. No address and no branch depends on a digit: every
+// warp reads every entry, the digits only select values. mma.sync needs the
+// whole warp, so no lane returns before the end: the lanes of a partial warp
+// past n recompute lane n - 1 (their reads stay in bounds and their digits
+// in range) and store nothing, and the gather's own __syncwarp() follows the
+// per-lane SHA-512 loops, whose block counts differ.
 //
 // Built by curve25519_tpu_torch/ops/cuda/build.py: with nvcc into a shared
 // library that ctypes loads (keygen_launch, sign_launch), and with g++ for
-// the CPU tests (keygen_host, sign_host, sc25519_op_host).
+// the CPU tests (keygen_host, sign_host with the masked scan, gather_host,
+// sc25519_op_host).
 
-#include "edwards25519.cuh"
+#include "gather_mma.cuh"
 #include "sc25519.cuh"
 #include "sha512.cuh"
 
@@ -69,11 +81,13 @@ FE_HD uint64_t be_word_i32(const int32_t* b) {
 }
 
 // (scalar + bl)*G + BP, or scalar*G without blinding; compressed bytes.
+// gather: a constant-time gather policy of base_mult over the fold-8 table.
+template <class Gather>
 FE_HD void blinded_base_pk(int32_t (&enc)[32], const Fe& scalar, const int32_t* zr,
-                           const int32_t* bl, const int32_t* bp, const uint32_t* tbl) {
+                           const int32_t* bl, const int32_t* bp, const Gather& gather) {
   int32_t dig[32];
   sc25519::cut8(dig, bl ? sc25519::add(scalar, load_fe(bl)) : scalar);
-  Ext s = base_mult<256, 32>(dig, zr ? load_fe(zr) : one(), tbl);
+  Ext s = base_mult<32>(dig, zr ? load_fe(zr) : one(), gather);
   if (bp) s = add_pe(s, bp);
   pack_ext(enc, s);
 }
@@ -85,16 +99,18 @@ FE_HD void keygen_lane(uint8_t* pk, const uint8_t* seed, const int32_t* zr,
   Fe a = secret_scalar(md);
   if (bl) a = sc25519::mod(a);  // the blinded route adds bl to a mod l
   int32_t enc[32];
-  blinded_base_pk(enc, a, zr, bl, bp, tbl);
+  blinded_base_pk(enc, a, zr, bl, bp, ScanGather<256>{tbl});
 #pragma unroll
   for (int j = 0; j < 32; j++) pk[j] = (uint8_t)enc[j];
 }
 
 // priv: 64 bytes (seed || pk); w2, w3: the lane's padded word rows of
-// (32-byte hole || m) and (64-byte hole || m) with nb2, nb3 active blocks.
+// (32-byte hole || m) and (64-byte hole || m) with nb2, nb3 active blocks;
+// sig: 64 bytes out, or null to store nothing.
+template <class Gather>
 FE_HD void sign_lane(uint8_t* sig, const uint8_t* priv, const int32_t* w2, int32_t nb2,
                      const int32_t* w3, int32_t nb3, const int32_t* zr, const int32_t* bl,
-                     const int32_t* bp, const uint32_t* tbl) {
+                     const int32_t* bp, const Gather& gather) {
   uint64_t md[8], st[8], w[16];
   int32_t by[64];
   seed_hash(md, priv);
@@ -114,7 +130,7 @@ FE_HD void sign_lane(uint8_t* sig, const uint8_t* priv, const int32_t* w2, int32
   const Fe r = sc25519::from_digest(by);
 
   int32_t R[32];
-  blinded_base_pk(R, r, zr, bl, bp, tbl);
+  blinded_base_pk(R, r, zr, bl, bp, gather);
 
   // h = SHA512(enc(R) || pk || m) mod l
   sha512::init(st);
@@ -136,6 +152,7 @@ FE_HD void sign_lane(uint8_t* sig, const uint8_t* priv, const int32_t* w2, int32
   // S = h*a + r mod l
   int32_t s_bytes[32];
   norm_to_bytes(s_bytes, sc25519::muladd(h, sc25519::mod(secret_scalar(md)), r));
+  if (!sig) return;
 #pragma unroll
   for (int j = 0; j < 32; j++) {
     sig[j] = (uint8_t)R[j];
@@ -166,6 +183,10 @@ keygen_kernel(uint8_t* __restrict__ pk, const uint8_t* __restrict__ sk,
               bl ? bl + bl_stride * lane : nullptr, bp ? bp + bp_stride * lane : nullptr, tbl);
 }
 
+// Dynamic shared memory of sign_kernel: the table in B order, then one
+// staging area per warp.
+constexpr int kSignSmemBytes = 4 * (kMmaTableWords + (kBlock / 32) * kStageWords);
+
 __global__ void __launch_bounds__(kBlock)
 sign_kernel(uint8_t* __restrict__ sig, const uint8_t* __restrict__ priv,
             const int32_t* __restrict__ w2, int64_t nw2, const int32_t* __restrict__ nb2,
@@ -173,13 +194,17 @@ sign_kernel(uint8_t* __restrict__ sig, const uint8_t* __restrict__ priv,
             const int32_t* __restrict__ zr, int64_t zr_stride, const int32_t* __restrict__ bl,
             int64_t bl_stride, const int32_t* __restrict__ bp, int64_t bp_stride,
             const uint32_t* __restrict__ table, int64_t n) {
-  __shared__ __align__(16) uint32_t tbl[kTableWords];
-  load_table(tbl, table);
+  extern __shared__ __align__(16) uint32_t smem[];
+  for (int i = threadIdx.x; i < kMmaTableWords / 4; i += blockDim.x)
+    reinterpret_cast<uint4*>(smem)[i] = reinterpret_cast<const uint4*>(table)[i];
+  __syncthreads();
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  sign_lane(sig + 64 * lane, priv + 64 * lane, w2 + nw2 * lane, nb2[lane], w3 + nw3 * lane,
-            nb3[lane], zr ? zr + zr_stride * lane : nullptr,
-            bl ? bl + bl_stride * lane : nullptr, bp ? bp + bp_stride * lane : nullptr, tbl);
+  if ((lane & ~(int64_t)31) >= n) return;  // the whole warp is past n
+  const int64_t row = lane < n ? lane : n - 1;
+  const MmaGather gather{smem, (int32_t*)smem + kMmaTableWords + (threadIdx.x >> 5) * kStageWords};
+  sign_lane(lane < n ? sig + 64 * lane : nullptr, priv + 64 * row, w2 + nw2 * row, nb2[row],
+            w3 + nw3 * row, nb3[row], zr ? zr + zr_stride * row : nullptr,
+            bl ? bl + bl_stride * row : nullptr, bp ? bp + bp_stride * row : nullptr, gather);
 }
 
 // pk: [n, 32] uint8 out; sk: [n, 32] uint8 seeds; zr, bl: 20-limb int32
@@ -201,15 +226,19 @@ extern "C" int keygen_launch(void* pk, const void* sk, const void* zr, int64_t z
 
 // sig: [n, 64] uint8 out; priv: [n, 64] uint8 (seed || pk); w2: [n, nw2] and
 // w3: [n, nw3] int32 padded word rows with nb2, nb3: [n] int32 active
-// blocks; the rest as keygen_launch.
+// blocks; table: the fold-8 table in B order (edwards_kernel.mma_table, 16-
+// byte aligned); the rest as keygen_launch.
 extern "C" int sign_launch(void* sig, const void* priv, const void* w2, int64_t nw2,
                            const void* nb2, const void* w3, int64_t nw3, const void* nb3,
                            const void* zr, int64_t zr_stride, const void* bl, int64_t bl_stride,
                            const void* bp, int64_t bp_stride, const void* table, int64_t n,
                            void* stream) {
   if (n > 0) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        sign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSignSmemBytes);
+    if (rc != cudaSuccess) return (int)rc;
     const unsigned blocks = (unsigned)((n + kBlock - 1) / kBlock);
-    sign_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+    sign_kernel<<<blocks, kBlock, kSignSmemBytes, (cudaStream_t)stream>>>(
         (uint8_t*)sig, (const uint8_t*)priv, (const int32_t*)w2, nw2, (const int32_t*)nb2,
         (const int32_t*)w3, nw3, (const int32_t*)nb3, (const int32_t*)zr, zr_stride,
         (const int32_t*)bl, bl_stride, (const int32_t*)bp, bp_stride, (const uint32_t*)table, n);
@@ -243,7 +272,27 @@ extern "C" void sign_host(uint8_t* sig, const uint8_t* priv, const int32_t* w2, 
   for (int64_t i = 0; i < n; i++)
     sign_lane(sig + 64 * i, priv + 64 * i, w2 + nw2 * i, nb2[i], w3 + nw3 * i, nb3[i],
               zr ? zr + zr_stride * i : nullptr, bl ? bl + bl_stride * i : nullptr,
-              bp ? bp + bp_stride * i : nullptr, table);
+              bp ? bp + bp_stride * i : nullptr, ScanGather<256>{table});
+}
+
+// out: [n, 60] int32, the limbs ypx ++ ymx ++ t2d of fold-8 entry dig[i],
+// by the masked scan (mma = 0; table: edwards_kernel.packed_table(8)) or by
+// the host emulation of the tensor-core gather, 32 lanes per warp and the
+// last warp partial (mma = 1; table: edwards_kernel.mma_table).
+extern "C" void gather_host(int mma, int32_t* out, const int32_t* dig, const uint32_t* table,
+                            int64_t n) {
+  auto rows = reinterpret_cast<int32_t(*)[3 * NLIMBS]>(out);
+  if (mma) {
+    for (int64_t w = 0; w < n; w += 32)
+      mma_gather_host(rows + w, dig + w, (int)(n - w < 32 ? n - w : 32), table);
+    return;
+  }
+  for (int64_t i = 0; i < n; i++) {
+    Fe e[3];
+    gather<256>(e[0], e[1], e[2], table, dig[i]);
+    for (int c = 0; c < 3; c++)
+      for (int k = 0; k < NLIMBS; k++) rows[i][NLIMBS * c + k] = e[c].v[k];
+  }
 }
 
 enum ScOp { SC_MOD, SC_ADD, SC_MUL, SC_MULADD, SC_SUB_FROM_ELL, SC_FROM_DIGEST, SC_CUT8 };

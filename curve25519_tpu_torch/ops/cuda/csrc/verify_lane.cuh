@@ -1,0 +1,195 @@
+// verify_lane.cuh -- the per-lane code of Ed25519 verification, shared by
+// verify.cu (Verify_Init and the double-scalar multiply as two kernels) and
+// oneshot.cu (the two fused in one kernel).
+//
+// Verify_Init (build_qtable): decode the 32 pk bytes (bit 255 is the parity,
+// flipped for -Q; y >= p is taken mod p), decompress x with the sqrt ratio,
+// then build the 16-entry q_table of subset sums of {-Q, 2^64(-Q),
+// 2^128(-Q), 2^192(-Q)} in PE form with 192 doublings and 11 PE adds.
+// The double-scalar multiply (poly_lane): R' = s*G + h*(-Q) from the 8-fold
+// digits of s and the 4-fold digits of h, 31 x (double + PE add), 32 x
+// (double + PA add + PE add), and enc(R').
+//
+// Both are templates over where the q_table lives (a policy with
+// store(i, entry), prefetch(i) and read(i, more)): PlaneRows below keeps the
+// JAX context's int8 planes, [16, 160] per lane: per entry the 80 canonical
+// limbs of (ypx, ymx, t2d, z2), first their low 7 bits (80 bytes), then their
+// high 6 bits (80 bytes); a limb is lo + (hi << 7). Read as 32-bit words, an
+// entry is 40 words and starts on a 16-byte boundary. Verify_Init writes each
+// entry as soon as it is made and reads earlier entries back for the
+// subset-sum adds; the entries are canonical, so they equal (mod p) the weak
+// limbs the TPU kernel added, and every later result is the same field
+// element. The base table of s is read through a policy too (PlainPa: the
+// packed fold-8 table, load_pa).
+//
+// Table reads: verify works on public data (the signature, the key, the
+// message), so both tables are read at an address that depends on the digit
+// (ROADMAP ground rule "Constant time"; verify_kernel.py:16-17), where the
+// masked scan that keygen and sign must use would cost ~254 K ALU operations
+// per lane, about half again the loop's field arithmetic.
+
+#pragma once
+
+#include "edwards25519.cuh"
+
+using namespace ed25519;
+
+constexpr int kQtEntryWords = 40;              // 160 bytes per entry
+constexpr int kQtWords = 16 * kQtEntryWords;   // one lane's q_table
+constexpr int kTableWords = 256 * kEntryWords; // the packed fold-8 table
+
+FE_HD Fe small(int32_t c) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < NLIMBS; i++) r.v[i] = i == 0 ? c : 0;
+  return r;
+}
+
+// Ext -> PE form (models/edwards.to_pe).
+FE_HD Pe to_pe(const Ext& p) {
+  return {add(p.y, p.x), sub(p.y, p.x), mul(p.t, ed_2d()), add(p.z, p.z)};
+}
+
+// Coordinate c of an entry: canonical limbs split into the lo and hi planes.
+FE_HD void store_coord(uint32_t* entry, int c, const Fe& x) {
+  const Fe d = canon(x);
+#pragma unroll
+  for (int k = 0; k < NLIMBS / 4; k++) {
+    uint32_t lo = 0, hi = 0;
+#pragma unroll
+    for (int b = 0; b < 4; b++) {
+      const uint32_t limb = (uint32_t)d.v[4 * k + b];
+      lo |= (limb & 0x7F) << (8 * b);
+      hi |= (limb >> 7) << (8 * b);
+    }
+    entry[5 * c + k] = lo;
+    entry[20 + 5 * c + k] = hi;
+  }
+}
+
+FE_HD void store_entry(uint32_t* entry, const Pe& e) {
+  store_coord(entry, 0, e.ypx);
+  store_coord(entry, 1, e.ymx);
+  store_coord(entry, 2, e.t2d);
+  store_coord(entry, 3, e.z2);
+}
+
+// The 80 limbs (ypx, ymx, t2d, z2) as an entry.
+FE_HD Pe pe_from_limbs(const int32_t (&limb)[4 * NLIMBS]) {
+  Pe e;
+#pragma unroll
+  for (int i = 0; i < NLIMBS; i++) {
+    e.ypx.v[i] = limb[i];
+    e.ymx.v[i] = limb[NLIMBS + i];
+    e.t2d.v[i] = limb[2 * NLIMBS + i];
+    e.z2.v[i] = limb[3 * NLIMBS + i];
+  }
+  return e;
+}
+
+FE_HD Pe decode_planes(const uint32_t (&w)[kQtEntryWords]) {
+  int32_t limb[4 * NLIMBS];
+#pragma unroll
+  for (int k = 0; k < 20; k++) {
+#pragma unroll
+    for (int b = 0; b < 4; b++)
+      limb[4 * k + b] = (int32_t)(((w[k] >> (8 * b)) & 0xFF) + (((w[20 + k] >> (8 * b)) & 0xFF) << 7));
+  }
+  return pe_from_limbs(limb);
+}
+
+FE_HD Pe load_entry(const uint32_t* entry) {
+  uint32_t w[kQtEntryWords];
+  load_words(w, entry);
+  return decode_planes(w);
+}
+
+// A q_table of int8 planes at qt, read where it is used (verify_init_kernel,
+// poly_kernel, poly_shared_kernel).
+struct PlaneRows {
+  uint32_t* qt;
+  FE_HD void store(int i, const Pe& e) { store_entry(qt + i * kQtEntryWords, e); }
+  FE_HD void prefetch(int) {}
+  FE_HD Pe read(int i, bool) { return load_entry(qt + i * kQtEntryWords); }
+};
+
+// The packed fold-8 table, read by index (load_pa).
+struct PlainPa {
+  const uint32_t* tbl;
+  FE_HD void operator()(Fe& ypx, Fe& ymx, Fe& t2d, int32_t idx) const {
+    load_pa(ypx, ymx, t2d, tbl, idx);
+  }
+};
+
+// x from y with the given parity, and ok = 1 where (y^2 - 1)/(d y^2 + 1) is a
+// square (models/edwards.calculate_x).
+FE_HD Fe calculate_x(const Fe& y, int32_t parity, int32_t& ok) {
+  const Fe y2 = sqr(y);
+  const Fe u = sub(y2, one());
+  const Fe v = add(mul(y2, ed_d()), one());
+  const Fe x = sqrt_ratio(u, v, ok);
+  const Fe xc = canon(x);
+  return select((xc.v[0] ^ parity) & 1, neg(xc), xc);
+}
+
+// Verify_Init of one lane: stores the 16 q_table entries of -Q in qt and
+// returns ok (ops/cuda/verify_kernel.verify_init_plain). Entry s of the
+// subset-sum adds is requested (qt.prefetch) one add ahead of its use, entry
+// 1 before the doublings.
+template <class Q>
+FE_HD int32_t build_qtable(Q& qt, const uint8_t* pk) {
+  int32_t b[32];
+#pragma unroll
+  for (int j = 0; j < 32; j++) b[j] = pk[j];
+  const int32_t parity = 1 - ((b[31] >> 7) & 1);  // the parity of -Q
+  b[31] &= 0x7F;
+  const Fe y = from_bytes(b);
+  int32_t ok;
+  const Fe x = calculate_x(y, parity, ok);
+  Ext q = {x, y, one(), mul(x, y)};
+  qt.store(0, {small(1), small(1), small(0), small(2)});  // the identity
+  qt.store(1, to_pe(q));
+#pragma unroll 1
+  for (int base = 2; base < 16; base *= 2) {
+    qt.prefetch(1);
+#pragma unroll 1
+    for (int i = 0; i < 64; i++) q = dbl(q);
+    qt.store(base, to_pe(q));
+#pragma unroll 1
+    for (int s = 1; s < base; s++) {
+      if (s + 1 < base) qt.prefetch(s + 1);
+      qt.store(base + s, to_pe(add_pe(q, qt.read(s, s + 1 < base))));
+    }
+  }
+  return ok;
+}
+
+// enc(s*G + h*(-Q)) of one lane (ops/cuda/verify_kernel.poly_mult_plain).
+// u: the 32 8-fold digits of s; v: the 64 4-fold digits of h; qt: the lane's
+// q_table (its entries are read in the order v[0], ..., v[63], each requested
+// one step ahead); pa: the fold-8 table. Digits are read mod 256 and 16.
+template <class Q, class PA>
+FE_HD void poly_lane(uint8_t* out, const int32_t* u, const int32_t* v, Q& qt, const PA& pa) {
+  qt.prefetch(v[0] & 15);
+  qt.prefetch(v[1] & 15);
+  const Pe q0 = qt.read(v[0] & 15, true);
+  Ext s = {sub(q0.ypx, q0.ymx), add(q0.ypx, q0.ymx), q0.z2, mul(q0.t2d, ed_di())};
+#pragma unroll 1
+  for (int i = 1; i < 32; i++) {
+    const Ext d = dbl(s);
+    qt.prefetch(v[i + 1] & 15);
+    s = add_pe(d, qt.read(v[i] & 15, true));
+  }
+#pragma unroll 1
+  for (int i = 0; i < 32; i++) {
+    Fe ypx, ymx, t2d;
+    pa(ypx, ymx, t2d, u[i] & 255);
+    s = add_pa(dbl(s), ypx, ymx, t2d);
+    if (i < 31) qt.prefetch(v[33 + i] & 15);
+    s = add_pe(s, qt.read(v[32 + i] & 15, i < 31));
+  }
+  int32_t enc[32];
+  pack_ext(enc, s);
+#pragma unroll
+  for (int j = 0; j < 32; j++) out[j] = (uint8_t)enc[j];
+}

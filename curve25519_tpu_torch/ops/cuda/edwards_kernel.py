@@ -24,8 +24,8 @@ from curve25519_tpu_torch.ops.cuda import (
     as_limbs, build, flatten_batch, use_cuda,
 )
 
-__all__ = ["base_mult", "base_mult_plain", "packed_table", "launches",
-           "MODES"]
+__all__ = ["base_mult", "base_mult_plain", "packed_table", "mma_table",
+           "launches", "MODES"]
 
 MODES = {"affine": 0, "mont_u": 1, "pk": 2, "u_bytes": 3}
 PE_KEYS = ("ypx", "ymx", "t2d", "z2")
@@ -43,6 +43,25 @@ def packed_table(nfolds, device):
     packed = np.zeros((len(t), 32), np.int32)
     packed[:, :3 * NLIMBS // 2] = t[:, 0::2] | (t[:, 1::2] << 16)
     return torch.as_tensor(packed.reshape(-1), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def mma_table(device):
+    """The folding-8 table as the B operand of the sign kernel's tensor-core
+    gather (csrc/gather_mma.cuh), on `device`: entry e is 120 bytes, the low
+    and the high byte of each of its 60 limbs (byte 2j + h of limb j), and
+    the [256 entries x 120 bytes] matrix is stored per (k-step of 32
+    entries, n-tile of 8 bytes) as the 32 lanes' two mma.sync B registers:
+    lane 4g + t holds bytes 8nt + g of entries 32ks + 4t + i (register 0)
+    and 32ks + 16 + 4t + i (register 1), i = 0..3 from the low byte up.
+    int32 [8 * 15 * 32 * 2]."""
+    limbs = tables.folding8_table().reshape(256, 3 * NLIMBS)
+    b = np.empty((256, 6 * NLIMBS), np.uint8)
+    b[:, 0::2], b[:, 1::2] = limbs & 0xFF, limbs >> 8
+    # entry e = 32ks + 16h + 4t + i, byte p = 8nt + g -> [ks, nt, g, t, h, i]
+    frag = b.reshape(8, 2, 4, 4, 15, 8).transpose(0, 4, 5, 2, 1, 3)
+    return torch.as_tensor(np.ascontiguousarray(frag).view("<i4").reshape(-1),
+                           device=device)
 
 
 def base_mult_plain(cut, zr=None, bp=None, mode="affine", nfolds=8):

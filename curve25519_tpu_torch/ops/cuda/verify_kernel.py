@@ -10,8 +10,10 @@ versions.
   (ops/fold), against one q_table per lane (planes [..., 16, 160]) or, when
   planes.ndim == 2, one q_table for every lane (the shared kernel).
 - ``verify_oneshot(pk, u, v)``: (enc(R') [..., 32] uint8, ok [...] bool),
-  the two in one launch; the q_tables go to a scratch tensor that the
-  launch alone uses.
+  the two in one launch (csrc/oneshot.cu): at most one block per SM, each
+  looping over lane tiles, with a scratch row for the q_table of each of
+  its threads that the launch alone uses. The library sizes the scratch
+  (``oneshot_scratch_rows``) and takes its grid from it.
 
 Each has a ``*_plain`` version on models/edwards and models/tables. CUDA
 tensors launch the kernels (or raise); CPU tensors run the plain versions.
@@ -134,6 +136,13 @@ def poly_mult(u, v, planes):
     return unflatten(out)
 
 
+def oneshot_scratch_rows(n, device):
+    """Scratch rows of the one-shot launch for n lanes on `device`, as the
+    library decides them (a row per thread of its grid)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return build.load_cuda("oneshot").oneshot_scratch_rows(n, sms)
+
+
 def verify_oneshot(pk, u, v):
     """(enc(R') [..., 32] uint8, ok [...] bool) in one launch for CUDA
     tensors, verify_oneshot_plain for CPU ones. Batch axes broadcast."""
@@ -149,9 +158,11 @@ def verify_oneshot(pk, u, v):
     u, v = _rows(u, batch, n, (32,)), _rows(v, batch, n, (64,))
     out = torch.empty((n, 32), dtype=torch.uint8, device=pk.device)
     ok = torch.empty((n,), dtype=torch.bool, device=pk.device)
-    scratch = torch.empty((n,) + QT_SHAPE, dtype=torch.int8, device=pk.device)
-    build.launch("verify", "oneshot_launch", pk.device, out.data_ptr(),
-                 ok.data_ptr(), scratch.data_ptr(), pk.data_ptr(),
+    rows = oneshot_scratch_rows(n, pk.device)
+    scratch = torch.empty((rows,) + QT_SHAPE, dtype=torch.int8,
+                          device=pk.device)
+    build.launch("oneshot", "oneshot_launch", pk.device, out.data_ptr(),
+                 ok.data_ptr(), scratch.data_ptr(), rows, pk.data_ptr(),
                  u.data_ptr(), v.data_ptr(),
                  edwards_kernel.packed_table(8, pk.device).data_ptr(), n)
     launches["oneshot"] += 1

@@ -183,6 +183,40 @@ def test_verify_kernels_equal_plain(dev, rng):
     assert verify_kernel.launches == {k: before[k] + 1 for k in before}
 
 
+def test_partial_warps_and_tiles(dev, rng):
+    """The sign kernel's warp-wide tensor-core gather on partial warps
+    (n = 1, 31, 33), plain and blinded; the persistent one-shot kernel with
+    fewer lanes than one tile, than its grid, and more than its grid holds
+    at once (its blocks loop over tiles), against the two phases."""
+    sk = on(dev, rng.integers(0, 256, (33, 32), dtype=np.uint8))
+    ctx = blinding.blinding_init(b"warps", device=dev)
+    zr = blinding.default_zr(device=dev)
+    _, priv = ed25519.create_keypair(sk)
+    msg = on(dev, rng.integers(0, 256, (33, 200), dtype=np.uint8))
+    lengths = on(dev, rng.integers(0, 201, 33).astype(np.int32))
+    want = sign_kernel.sign_plain(priv, msg, lengths, zr=zr)
+    for n in (1, 31, 33):
+        assert torch.equal(sign_kernel.sign_fused(priv[:n], msg[:n],
+                                                  lengths[:n], zr=zr), want[:n])
+        assert torch.equal(sign_kernel.sign_fused(
+            priv[:n], msg[:n], lengths[:n], zr=ctx["zr"], bl=ctx["bl"],
+            bp=ctx["bp"]), want[:n])
+    lanes = verify_kernel.oneshot_scratch_rows(1 << 30, dev) + 33
+    pk, _ = ed25519.create_keypair(on(dev, rng.integers(0, 256, (lanes, 32),
+                                                         dtype=np.uint8)))
+    u = fold.cut8_bytes(on(dev, rng.integers(0, 256, (lanes, 32),
+                                             dtype=np.uint8)))
+    v = fold.cut4_limbs(sc.from_digest(on(dev, rng.integers(
+        0, 256, (lanes, 64), dtype=np.uint8))))
+    planes, ok = verify_kernel.verify_init(pk)
+    r = verify_kernel.poly_mult(u, v, planes)
+    for n in (1, 31, 33, 300, lanes):
+        r1, ok1 = verify_kernel.verify_oneshot(pk[:n], u[:n], v[:n])
+        assert torch.equal(r1, r[:n]) and torch.equal(ok1, ok[:n]), n
+    plain = verify_kernel.verify_oneshot_plain(pk[:33], u[:33], v[:33])
+    assert torch.equal(plain[0], r[:33]) and torch.equal(plain[1], ok[:33])
+
+
 def test_verify_paths_on_the_card(dev, rng):
     n = 130
     pk, priv = ed25519.create_keypair(on(dev, rng.integers(0, 256, (n, 32),

@@ -24,7 +24,7 @@ from curve25519_tpu.models import blinding as jblinding
 from curve25519_tpu.models import ed25519 as jed25519
 
 from curve25519_tpu_torch import _custom_blind as tcb
-from curve25519_tpu_torch.models import blinding, ed25519, x25519
+from curve25519_tpu_torch.models import blinding, ed25519, tables, x25519
 from curve25519_tpu_torch.ops import sha512
 from curve25519_tpu_torch.ops.cuda import build, edwards_kernel, sign_kernel
 from curve25519_tpu_torch.utils.interop import (
@@ -254,3 +254,28 @@ def test_host_kernels_equal_plain(lib, rng):
                       w3.shape[1], nb3.ctypes.data, z, 0, b, 0, q, 0,
                       table.ctypes.data, n)
         np.testing.assert_array_equal(sig, to_numpy(want))
+
+
+def test_host_tensor_core_gather_equals_scan(lib):
+    """The host emulation of the sign kernel's tensor-core gather (the A, B
+    and D fragment layouts of mma.m16n8k32 over edwards_kernel.mma_table,
+    csrc/gather_mma.cuh) against the masked scan gather<256> over the packed
+    table, and both against the table's rows: digits 0 and 255, all equal,
+    all distinct, and a partial warp."""
+    cpu = torch.device("cpu")
+    packed = to_numpy(edwards_kernel.packed_table(8, cpu))
+    frag = to_numpy(edwards_kernel.mma_table(cpu))
+    limbs = tables.folding8_table().reshape(256, 60)
+    perm = np.random.default_rng(3).permutation(256).astype(np.int32)
+    cases = {"0 and 255": np.tile(np.array([0, 255], np.int32), 16),
+             "all equal": np.full(32, 77, np.int32),
+             "all distinct": perm,
+             "partial warp": np.concatenate([perm[:32], perm[:13]])}
+    for name, dig in cases.items():
+        want = limbs[dig]
+        for mma, table in ((0, packed), (1, frag)):
+            out = np.full((len(dig), 60), -1, np.int32)
+            lib.gather_host(mma, out.ctypes.data, dig.ctypes.data,
+                            table.ctypes.data, len(dig))
+            np.testing.assert_array_equal(out, want, err_msg="%s mma=%d"
+                                          % (name, mma))

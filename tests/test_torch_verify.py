@@ -247,9 +247,10 @@ def test_rank1_and_broadcast_calls(batch):
 
 
 def test_host_kernels_equal_plain(lib, batch, digits):
-    """verify.cu's lane code built with g++: Verify_Init (valid and invalid
-    keys), the double-scalar multiply with per-lane and shared q_tables,
-    the one-shot kernel, pow2523 and sqrt_ratio."""
+    """verify.cu's and oneshot.cu's lane code built with g++: Verify_Init
+    (valid and invalid keys), the double-scalar multiply with per-lane and
+    shared q_tables, the one-shot kernel with its scratch layout, pow2523
+    and sqrt_ratio."""
     pk = np.ascontiguousarray(batch[0])
     u, v = (np.ascontiguousarray(d) for d in digits)
     n = len(pk)
@@ -271,11 +272,21 @@ def test_host_kernels_equal_plain(lib, batch, digits):
         np.testing.assert_array_equal(out, to_numpy(want), err_msg=shared)
     out = np.zeros((n, 32), np.uint8)
     ok1 = np.zeros(n, np.uint8)
-    lib.oneshot_host(out.ctypes.data, ok1.ctypes.data, pk.ctypes.data,
-                     u.ctypes.data, v.ctypes.data, table.ctypes.data, n)
+    scratch = np.zeros((n, 16, 80), np.int16)
+    lib.oneshot_host(out.ctypes.data, ok1.ctypes.data, scratch.ctypes.data,
+                     pk.ctypes.data, u.ctypes.data, v.ctypes.data,
+                     table.ctypes.data, n)
     want_r, want_ok = verify_kernel.verify_oneshot_plain(t(pk), t(u), t(v))
     np.testing.assert_array_equal(out, to_numpy(want_r))
     np.testing.assert_array_equal(ok1.astype(bool), to_numpy(want_ok))
+    # the one-shot scratch row holds the q_table as int16 canonical limbs:
+    # the limbs lo + (hi << 7) of the int8 planes
+    limbs = planes[..., :80].astype(np.int16) + (planes[..., 80:].astype(
+        np.int16) << 7)
+    np.testing.assert_array_equal(scratch, limbs)
+    # the launch's scratch: a 256-thread block per 256 lanes, one per SM
+    assert [lib.oneshot_scratch_rows(m, 132) for m in (1, 256, 257, 1 << 40)
+            ] == [256, 256, 512, 132 * 256]
 
     rng = np.random.default_rng(6)
     x = rng.integers(jfe.WEAK_MIN, jfe.WEAK_MAX + 1, (8, 20), dtype=np.int32)
