@@ -21,9 +21,10 @@ nothing of JAX or of the JAX package. Phases, each printing a line:
    kernel; then create_shared_key timed against the plain version;
 6. the base-multiply, SHA-512, keygen and sign kernels against their plain
    versions, byte for byte: 4,096 random lanes, ragged batches, rank-1 and
-   broadcast calls, fold 8 and fold 4 with all four base-multiply modes, the
-   blinded routes (which must not change a byte), SHA-512 at the padding
-   edges and sign at the fused cap (943/944-byte messages);
+   broadcast calls, fold 8 and fold 4 with all four base-multiply modes (fold
+   8 also at every ragged size), the blinded routes (which must not change a
+   byte), SHA-512 at the padding edges and sign at the fused cap (943/944-byte
+   messages);
 7. Ed25519 known answers: RFC 8032 7.1 TEST 1-3, SHA-512 against hashlib,
    and random lanes (short and long messages) against an independent
    Python-integer Ed25519;
@@ -90,9 +91,9 @@ KERNELS = {
                     ("sign_kernel",)),
     "verify_init_kernel": ("verify.cu", PALLAS + "verify_kernel.py:218",
                            ("verify_init_kernel",)),
-    "poly_kernel": ("verify.cu", PALLAS + "verify_kernel.py:85",
+    "poly_kernel": ("poly.cu", PALLAS + "verify_kernel.py:85",
                     ("poly_kernel",)),
-    "poly_shared_kernel": ("verify.cu", PALLAS + "verify_kernel.py:85",
+    "poly_shared_kernel": ("poly.cu", PALLAS + "verify_kernel.py:85",
                            ("poly_shared_kernel",)),
     "oneshot_kernel": ("oneshot.cu", PALLAS + "verify_kernel.py:320",
                        ("oneshot_kernel",)),
@@ -688,23 +689,27 @@ def phase_ed_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
     zr = blinding.default_zr(device=dev)
     sk = rand_bytes(rng, (lanes, 32), dev)
 
-    # B3: both folds, every mode, with and without the PE blinding add;
-    # ragged, rank-1 and broadcast calls on fold 8 pk
+    # B3: both folds, every mode, with and without the PE blinding add; the
+    # fold-8 kernel's warp-wide gather on partial warps and blocks (ragged
+    # sizes) in every mode, plain and blinded, against the plain version's
+    # rows; rank-1 and broadcast calls on fold 8 pk
     for nfolds in (8, 4):
         cut = (fold.cut8_bytes if nfolds == 8 else fold.cut4_bytes)(sk)
         for mode in ek.MODES:
             for bp in (None, ctx["bp"]):
+                what = "fold %d %s bp=%s" % (nfolds, mode, bp is not None)
+                want = ek.base_mult_plain(cut, zr=ctx["zr"], bp=bp, mode=mode,
+                                          nfolds=nfolds)
                 hold("basemult_kernel",
                      ek.base_mult(cut, zr=ctx["zr"], bp=bp, mode=mode,
-                                  nfolds=nfolds),
-                     ek.base_mult_plain(cut, zr=ctx["zr"], bp=bp, mode=mode,
-                                        nfolds=nfolds),
-                     "fold %d %s bp=%s" % (nfolds, mode, bp is not None))
+                                  nfolds=nfolds), want, what)
+                for n in RAGGED if nfolds == 8 else ():
+                    hold("basemult_kernel",
+                         ek.base_mult(cut[:n], zr=ctx["zr"], bp=bp, mode=mode),
+                         tuple(w[:n] for w in want) if isinstance(want, tuple)
+                         else want[:n], "%s, ragged %d" % (what, n))
     cut = fold.cut8_bytes(sk)
     full = ek.base_mult(cut, zr=zr, mode="pk")
-    for n in RAGGED:
-        hold("basemult_kernel", ek.base_mult(cut[:n], zr=zr, mode="pk"),
-             full[:n], "ragged %d" % n)
     hold("basemult_kernel", ek.base_mult(cut[5], zr=zr, mode="pk"), full[5],
          "rank-1")
     hold("basemult_kernel", ek.base_mult(cut[:16], zr=ctx["zr"][None, :],
@@ -776,7 +781,8 @@ def phase_ed_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
          sgk.sign_plain(priv[:256], m944, n944, zr=zr), "944-byte messages")
     torch.cuda.synchronize()
     print("phase 6 kernels vs plain: %d random lanes; base multiply fold 8 "
-          "and 4 x 4 modes x (no BP, BP); SHA-512 random lengths and "
+          "and 4 x 4 modes x (no BP, BP), fold 8 also ragged in each; "
+          "SHA-512 random lengths and "
           "padding edges, prefix; keygen and sign (64 and 943 bytes fused, "
           "944 composed) plain and blinded with "
           "blinding_init(b'chip-smoke'); ragged %s, rank-1, broadcast: "

@@ -3,7 +3,8 @@ curve25519_tpu/native/bindings.py: a plain C interface, compiled on demand,
 loaded with ctypes).
 
 - ``load_cuda(name)`` compiles one library (``ladder``, ``basemult``,
-  ``sha512``, ``sign``, ``verify`` or ``oneshot``: ``csrc/<name>.cu``) with nvcc for sm_90a into
+  ``sha512``, ``sign``, ``verify``, ``poly`` or ``oneshot``:
+  ``csrc/<name>.cu``) with nvcc for sm_90a into
   ``_build/`` (git-ignored) the first time it is called, and again whenever a
   source is newer than the library. ``build_cuda()`` compiles every library
   anew, one nvcc process per source, all started together, and returns per
@@ -52,9 +53,10 @@ LIBRARIES = {
                                 _vp, _i64, _vp],
               "sign_launch": [_vp, _vp, _vp, _i64, _vp, _vp, _i64, _vp, _vp,
                               _i64, _vp, _i64, _vp, _i64, _vp, _i64, _vp]}),
-    "verify": (("verify_init_kernel", "poly_kernel", "poly_shared_kernel"),
-               {"verify_init_launch": [_vp, _vp, _vp, _i64, _vp],
-                "poly_launch": [_vp, _vp, _vp, _vp, _int, _vp, _i64, _vp]}),
+    "verify": (("verify_init_kernel",),
+               {"verify_init_launch": [_vp, _vp, _vp, _i64, _vp]}),
+    "poly": (("poly_kernel", "poly_shared_kernel"),
+             {"poly_launch": [_vp, _vp, _vp, _vp, _int, _vp, _i64, _vp]}),
     "oneshot": (("oneshot_kernel",),
                 {"oneshot_scratch_rows": [_i64, _int],
                  "oneshot_launch": [_vp, _vp, _vp, _i64, _vp, _vp, _vp, _vp,
@@ -197,8 +199,8 @@ def load_host(so_path):
     lib.fe25519_op_host.restype = ctypes.c_int
     lib.sha512_host.argtypes = [_vp, _vp, _vp, _i64, _i64]
     lib.sha512_host.restype = None
-    lib.basemult_host.argtypes = [_vp, _vp, _vp, _i64, _vp, _i64, _vp, _int,
-                                  _int, _i64]
+    lib.basemult_host.argtypes = [_int, _vp, _vp, _vp, _i64, _vp, _i64, _vp,
+                                  _int, _int, _i64]
     lib.basemult_host.restype = ctypes.c_int
     lib.keygen_host.argtypes = [_vp, _vp, _vp, _i64, _vp, _i64, _vp, _i64,
                                 _vp, _i64]

@@ -14,20 +14,26 @@
 // Where the TPU padded the batch to 1024-lane tiles, each thread owns one
 // lane and the grid masks lane < n.
 //
-// What bounds it on this card: issue of int32 work. A fold-8 lane does ~360
-// field multiplies and ~380 squarings (~220 K IMAD) and, for the constant-
-// time table lookup, reads all 256 entries at each of its 32 steps: ~8 K
-// masked ORs per step, ~260 K over the multiply. What the design does about
-// it: the lookup reads a table packed two limbs per word from shared memory
-// (one copy per block, broadcast reads, 16-byte loads), which halves the
-// selects against 60 separate limbs. The sign kernel's int8 one-hot
-// mma.sync gather (gather_mma.cuh) is the next step for this kernel.
+// What bounds it on this card: issue of int32 multiply-adds. A fold-8 lane
+// does ~360 field multiplies and ~380 squarings (~220 K IMAD). Its 32
+// constant-time table reads run on the tensor cores (gather_mma.cuh): per
+// warp and read, 240 int8 one-hot mma.sync products over the table in shared
+// memory, in B-fragment order, where a masked scan of all 256 entries costs
+// ~8 K ALU operations per lane and read, about as much as the arithmetic.
+// No address and no branch depends on a digit. mma.sync needs the whole warp:
+// a warp wholly past n leaves at once, the lanes of a partial warp recompute
+// lane n - 1 and store nothing. Shared memory per block of 128 threads: the
+// 30 KB table and four warps' staging rows, 64 KB of dynamic memory. The
+// fold-4 kernel keeps the masked scan of its 16 entries (packed two limbs per
+// word, one copy per block, broadcast 16-byte reads): 64 reads x 16 entries.
 //
 // Built by curve25519_tpu_torch/ops/cuda/build.py: with nvcc into a shared
 // library that ctypes loads (basemult_launch), and with g++ for the CPU
-// tests (basemult_host), which run the same per-lane code on the host.
+// tests (basemult_host), which run the same per-lane code on the host, the
+// fold-8 reads by the masked scan or by the host emulation of the tensor-core
+// gather.
 
-#include "edwards25519.cuh"
+#include "gather_mma.cuh"
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -38,12 +44,15 @@ using namespace ed25519;
 enum Mode { MODE_AFFINE = 0, MODE_MONT_U = 1, MODE_PK = 2, MODE_U_BYTES = 3 };
 
 // One lane. zr: 20 limbs or null for one; bp: 80 limbs (ypx, ymx, t2d, z2)
-// or null; out: 32 bytes (uint8) for the byte modes, else 40 int32 limbs.
-template <int NFOLDS>
-FE_HD void basemult_lane(void* out, const int32_t* cut, const int32_t* zr,
-                         const int32_t* bp, const uint32_t* tbl, int mode) {
+// or null; out: 32 bytes (uint8) for the byte modes, else 40 int32 limbs, or
+// null to store nothing; gather: a constant-time gather policy of base_mult
+// over the table of the NCUTS digits.
+template <int NCUTS, class Gather>
+FE_HD void basemult_lane(void* out, const int32_t* cut, const int32_t* zr, const int32_t* bp,
+                         int mode, const Gather& gather) {
   const Fe z0 = zr ? load_fe(zr) : one();
-  Ext s = base_mult<256 / NFOLDS>(cut, z0, ScanGather<1 << NFOLDS>{tbl});
+  Ext s = base_mult<NCUTS>(cut, z0, gather);
+  if (!out) return;
   if (bp) s = add_pe(s, bp);
   // one inversion: of Z for the affine and pk epilogues, of Z - Y for u
   const bool is_u = mode == MODE_MONT_U || mode == MODE_U_BYTES;
@@ -74,51 +83,63 @@ FE_HD int64_t out_stride(int mode) { return mode >= MODE_PK ? 32 : 4 * 2 * NLIMB
 #ifdef __CUDACC__
 
 constexpr int kBlock = 128;
-
-template <int NFOLDS>
-__device__ __forceinline__ void basemult_body(char* out, const int32_t* cut, const int32_t* zr,
-                                              int64_t zr_stride, const int32_t* bp,
-                                              int64_t bp_stride, const uint32_t* table,
-                                              int mode, int64_t n) {
-  constexpr int kWords = (1 << NFOLDS) * kEntryWords;
-  __shared__ __align__(16) uint32_t tbl[kWords];
-  for (int i = threadIdx.x; i < kWords; i += blockDim.x) tbl[i] = table[i];
-  __syncthreads();
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  basemult_lane<NFOLDS>(out + out_stride(mode) * lane, cut + (256 / NFOLDS) * lane,
-                        zr ? zr + zr_stride * lane : nullptr,
-                        bp ? bp + bp_stride * lane : nullptr, tbl, mode);
-}
+// Dynamic shared memory of the fold-8 kernel: the table in B order, then one
+// staging area per warp.
+constexpr int kFold8SmemBytes = 4 * (kMmaTableWords + (kBlock / 32) * kStageWords);
 
 __global__ void __launch_bounds__(kBlock)
 basemult_fold8_kernel(char* out, const int32_t* __restrict__ cut, const int32_t* __restrict__ zr,
                       int64_t zr_stride, const int32_t* __restrict__ bp, int64_t bp_stride,
                       const uint32_t* __restrict__ table, int mode, int64_t n) {
-  basemult_body<8>(out, cut, zr, zr_stride, bp, bp_stride, table, mode, n);
+  extern __shared__ __align__(16) uint32_t smem[];
+  for (int i = threadIdx.x; i < kMmaTableWords / 4; i += blockDim.x)
+    reinterpret_cast<uint4*>(smem)[i] = reinterpret_cast<const uint4*>(table)[i];
+  __syncthreads();
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if ((lane & ~(int64_t)31) >= n) return;  // the whole warp is past n
+  const int64_t row = lane < n ? lane : n - 1;
+  const MmaGather gather{smem, (int32_t*)smem + kMmaTableWords + (threadIdx.x >> 5) * kStageWords};
+  basemult_lane<32>(lane < n ? out + out_stride(mode) * lane : nullptr, cut + 32 * row,
+                    zr ? zr + zr_stride * row : nullptr, bp ? bp + bp_stride * row : nullptr,
+                    mode, gather);
 }
 
 __global__ void __launch_bounds__(kBlock)
 basemult_fold4_kernel(char* out, const int32_t* __restrict__ cut, const int32_t* __restrict__ zr,
                       int64_t zr_stride, const int32_t* __restrict__ bp, int64_t bp_stride,
                       const uint32_t* __restrict__ table, int mode, int64_t n) {
-  basemult_body<4>(out, cut, zr, zr_stride, bp, bp_stride, table, mode, n);
+  constexpr int kWords = 16 * kEntryWords;
+  __shared__ __align__(16) uint32_t tbl[kWords];
+  for (int i = threadIdx.x; i < kWords; i += blockDim.x) tbl[i] = table[i];
+  __syncthreads();
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  basemult_lane<64>(out + out_stride(mode) * lane, cut + 64 * lane,
+                    zr ? zr + zr_stride * lane : nullptr, bp ? bp + bp_stride * lane : nullptr,
+                    mode, ScanGather<16>{tbl});
 }
 
 // out: [n, 32] uint8 or [n, 40] int32 (by mode); cut: [n, 256/nfolds] int32;
 // zr: [n, 20] int32 rows at zr_stride (0: one shared row) or null; bp: [n, 80]
-// int32 rows at bp_stride or null; table: the packed folding table for
-// nfolds, on the device. Launches on `stream`, allocates nothing, does not
-// synchronize. Returns cudaGetLastError() (0 on success), or -1 for a bad
-// nfolds or mode.
+// int32 rows at bp_stride or null; table, on the device: for nfolds 8 the
+// fold-8 table in B order (edwards_kernel.mma_table, 16-byte aligned), for
+// nfolds 4 the packed fold-4 table (edwards_kernel.packed_table). Launches on
+// `stream`, allocates nothing, does not synchronize. Returns
+// cudaGetLastError() (0 on success), the error of a refused shared-memory
+// attribute, or -1 for a bad nfolds or mode.
 extern "C" int basemult_launch(void* out, const void* cut, const void* zr, int64_t zr_stride,
                                const void* bp, int64_t bp_stride, const void* table,
                                int nfolds, int mode, int64_t n, void* stream) {
   if ((nfolds != 8 && nfolds != 4) || mode < 0 || mode > 3) return -1;
   if (n > 0) {
     const unsigned blocks = (unsigned)((n + kBlock - 1) / kBlock);
+    if (nfolds == 8) {
+      const cudaError_t rc = cudaFuncSetAttribute(
+          basemult_fold8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFold8SmemBytes);
+      if (rc != cudaSuccess) return (int)rc;
+    }
     auto kernel = nfolds == 8 ? basemult_fold8_kernel : basemult_fold4_kernel;
-    kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+    kernel<<<blocks, kBlock, nfolds == 8 ? kFold8SmemBytes : 0, (cudaStream_t)stream>>>(
         (char*)out, (const int32_t*)cut, (const int32_t*)zr, zr_stride, (const int32_t*)bp,
         bp_stride, (const uint32_t*)table, mode, n);
   }
@@ -131,19 +152,25 @@ extern "C" const char* cuda_error_string(int code) {
 
 #endif  // __CUDACC__
 
-// Host entry: the same per-lane code on the CPU, for the tests.
-extern "C" int basemult_host(void* out, const int32_t* cut, const int32_t* zr,
+// Host entry: the same per-lane code on the CPU, for the tests. mma = 0: the
+// masked scan over the packed table of nfolds (edwards_kernel.packed_table);
+// mma = 1 (nfolds 8 only): the host emulation of the tensor-core gather over
+// the table in B order (edwards_kernel.mma_table), lane i at position i % 32
+// of its warp. Returns 0, or -1 for a bad mma, nfolds or mode.
+extern "C" int basemult_host(int mma, void* out, const int32_t* cut, const int32_t* zr,
                              int64_t zr_stride, const int32_t* bp, int64_t bp_stride,
                              const uint32_t* table, int nfolds, int mode, int64_t n) {
-  if ((nfolds != 8 && nfolds != 4) || mode < 0 || mode > 3) return -1;
+  if ((nfolds != 8 && nfolds != 4) || mode < 0 || mode > 3 || (mma && nfolds != 8)) return -1;
   for (int64_t i = 0; i < n; i++) {
     char* o = (char*)out + out_stride(mode) * i;
     const int32_t* z = zr ? zr + zr_stride * i : nullptr;
     const int32_t* b = bp ? bp + bp_stride * i : nullptr;
-    if (nfolds == 8)
-      basemult_lane<8>(o, cut + 32 * i, z, b, table, mode);
+    if (mma)
+      basemult_lane<32>(o, cut + 32 * i, z, b, mode, MmaGatherHost{table, (int)(i & 31)});
+    else if (nfolds == 8)
+      basemult_lane<32>(o, cut + 32 * i, z, b, mode, ScanGather<256>{table});
     else
-      basemult_lane<4>(o, cut + 64 * i, z, b, table, mode);
+      basemult_lane<64>(o, cut + 64 * i, z, b, mode, ScanGather<16>{table});
   }
   return 0;
 }

@@ -15,8 +15,9 @@
 // the reads broadcast; the table is packed two 13-bit limbs per 32-bit word
 // (limb 2k in bits 0..15, limb 2k+1 in bits 16..31 of word k, over the 60
 // limbs ypx ++ ymx ++ t2d), 32 words per entry (the last two zero), which
-// halves the selects of a gather. The sign kernel does the same read as an
-// int8 one-hot product on the tensor cores (gather_mma.cuh). Verify's
+// halves the selects of a gather. The sign kernel and the fold-8 base
+// multiply do the same read as an int8 one-hot product on the tensor cores
+// (gather_mma.cuh). Verify's
 // digits of s are public, so it reads the one entry it needs by index
 // instead (load_pa, csrc/verify_lane.cuh).
 
@@ -114,6 +115,23 @@ FE_HD Ext add_pe(const Ext& p, const int32_t* q) {
   return add_pe(p, e);
 }
 
+// add_pe with Q read a coordinate at a time: q.coord<c>() gives ypx, ymx,
+// t2d or z2 (c = 0..3) just before the multiply that takes it, so no more
+// than one coordinate of Q is live beside P (the double-scalar multiply
+// decodes its q_table entries so, csrc/poly.cu).
+template <class Q>
+FE_HD Ext add_pe_with(const Ext& p, const Q& q) {
+  const Fe a = mul(sub(p.y, p.x), q.template coord<1>());
+  const Fe b = mul(add(p.y, p.x), q.template coord<0>());
+  const Fe c = mul(p.t, q.template coord<2>());
+  const Fe d = mul(p.z, q.template coord<3>());
+  const Fe e = sub(b, a);
+  const Fe h = add(b, a);
+  const Fe f = sub(d, c);
+  const Fe g = add(d, c);
+  return {mul(e, f), mul(h, g), mul(g, f), mul(e, h)};
+}
+
 // Reads N words from a 16-byte aligned address (16-byte loads on the
 // device), such as one packed table entry.
 template <int N>
@@ -197,8 +215,8 @@ FE_HD void load_pa(Fe& ypx, Fe& ymx, Fe& t2d, const uint32_t* tbl, int32_t idx) 
 // (2xR : 2yR : 2R : 2xyR) from entry cut[0], then (NCUTS - 1) x (double +
 // table add) (models/edwards._base_mult_folded). `cut` is read at indices
 // that depend only on the step counter. `gather(ypx, ymx, t2d, digit)` reads
-// a table entry in constant time: ScanGather, or the sign kernel's
-// tensor-core MmaGather (gather_mma.cuh).
+// a table entry in constant time: ScanGather, or the tensor-core MmaGather
+// of the sign and fold-8 base-multiply kernels (gather_mma.cuh).
 template <int NCUTS, class Gather>
 FE_HD Ext base_mult(const int32_t* cut, const Fe& zr, const Gather& gather) {
   Fe ypx, ymx, t2d;

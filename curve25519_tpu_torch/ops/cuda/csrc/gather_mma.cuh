@@ -1,10 +1,11 @@
 // gather_mma.cuh -- the constant-time fold-8 table gather of one warp as an
 // exact int8 one-hot product on the tensor cores.
 //
-// Replaces, for the sign kernel, the masked scan of edwards25519.cuh
-// (gather<256>), as the TPU did the same gather as a one-hot product on its
-// matrix unit (curve25519_tpu/ops/pallas/edwards_kernel.py:13-19). The warp's
-// 32 lanes each want entry d(lane) of the 256-entry table:
+// Replaces, for the sign kernel and the fold-8 base multiply, the masked scan
+// of edwards25519.cuh (gather<256>), as the TPU did the same gather as a
+// one-hot product on its matrix unit
+// (curve25519_tpu/ops/pallas/edwards_kernel.py:13-19). The warp's 32 lanes
+// each want entry d(lane) of the 256-entry table:
 //
 //   D [32 lanes x 120 bytes] = A [32 x 256] . B [256 x 120],
 //   A[lane][e] = (e == d(lane)),   B[e][2j + h] = byte h of limb j of entry e,
@@ -43,7 +44,8 @@
 // any digit and ignores the result).
 //
 // The same layouts are emulated on the host (mma_gather_host), 32 lanes one
-// after another, so the CPU tests hold them against gather<256>.
+// after another, so the CPU tests hold them against gather<256>;
+// MmaGatherHost runs the emulation as base_mult's gather policy.
 
 #pragma once
 
@@ -235,5 +237,28 @@ inline void mma_gather_host(int32_t (*out)[3 * NLIMBS], const int32_t* dig, int 
     }
   }
 }
+
+// MmaGather on the host, as a gather policy of base_mult for the lane at
+// position `pos` of its warp: the lane's digit sits at that position, the
+// other 31 lanes ask for other entries (digit + 73 (lane - pos) mod 256), and
+// the warp's gather runs through mma_gather_host.
+struct MmaGatherHost {
+  const uint32_t* frag;
+  int pos;
+
+  FE_HD void operator()(Fe& ypx, Fe& ymx, Fe& t2d, int32_t idx) const {
+#ifndef __CUDA_ARCH__
+    int32_t dig[32], rows[32][3 * NLIMBS];
+    for (int lane = 0; lane < 32; lane++)
+      dig[lane] = lane == pos ? idx : (idx + 73 * (lane - pos)) & 255;
+    mma_gather_host(rows, dig, 32, frag);
+    for (int i = 0; i < NLIMBS; i++) {
+      ypx.v[i] = rows[pos][i];
+      ymx.v[i] = rows[pos][NLIMBS + i];
+      t2d.v[i] = rows[pos][2 * NLIMBS + i];
+    }
+#endif
+  }
+};
 
 }  // namespace ed25519

@@ -147,6 +147,8 @@ struct ScratchRows {
     taken++;
     return decode(w);
   }
+
+  FE_HD Ext add(const Ext& p, int i, bool more) { return add_pe(p, read(i, more)); }
 };
 
 #ifdef __CUDACC__

@@ -1,5 +1,5 @@
 // verify_lane.cuh -- the per-lane code of Ed25519 verification, shared by
-// verify.cu (Verify_Init and the double-scalar multiply as two kernels) and
+// verify.cu (Verify_Init), poly.cu (the double-scalar multiply) and
 // oneshot.cu (the two fused in one kernel).
 //
 // Verify_Init (build_qtable): decode the 32 pk bytes (bit 255 is the parity,
@@ -11,7 +11,8 @@
 // (double + PA add + PE add), and enc(R').
 //
 // Both are templates over where the q_table lives (a policy with
-// store(i, entry), prefetch(i) and read(i, more)): PlaneRows below keeps the
+// store(i, entry), prefetch(i), read(i, more) and add(p, i, more), which
+// returns p + entry i): PlaneRows below keeps the
 // JAX context's int8 planes, [16, 160] per lane: per entry the 80 canonical
 // limbs of (ypx, ymx, t2d, z2), first their low 7 bits (80 bytes), then their
 // high 6 bits (80 bytes); a limb is lo + (hi << 7). Read as 32-bit words, an
@@ -87,14 +88,23 @@ FE_HD Pe pe_from_limbs(const int32_t (&limb)[4 * NLIMBS]) {
   return e;
 }
 
+// Limbs 4k..4k+3 of a coordinate from word k of its lo plane and word k of
+// its hi plane: limb b = byte b of lo + (byte b of hi << 7).
+FE_HD void decode_word(int32_t* limb, uint32_t lo, uint32_t hi) {
+#pragma unroll
+  for (int b = 0; b < 4; b++) {
+#ifdef __CUDA_ARCH__
+    limb[b] = (int32_t)(__byte_perm(lo, 0, 0x4440 + b) + (__byte_perm(hi, 0, 0x4440 + b) << 7));
+#else
+    limb[b] = (int32_t)(((lo >> (8 * b)) & 0xFF) + (((hi >> (8 * b)) & 0xFF) << 7));
+#endif
+  }
+}
+
 FE_HD Pe decode_planes(const uint32_t (&w)[kQtEntryWords]) {
   int32_t limb[4 * NLIMBS];
 #pragma unroll
-  for (int k = 0; k < 20; k++) {
-#pragma unroll
-    for (int b = 0; b < 4; b++)
-      limb[4 * k + b] = (int32_t)(((w[k] >> (8 * b)) & 0xFF) + (((w[20 + k] >> (8 * b)) & 0xFF) << 7));
-  }
+  for (int k = 0; k < 20; k++) decode_word(limb + 4 * k, w[k], w[20 + k]);
   return pe_from_limbs(limb);
 }
 
@@ -104,13 +114,39 @@ FE_HD Pe load_entry(const uint32_t* entry) {
   return decode_planes(w);
 }
 
-// A q_table of int8 planes at qt, read where it is used (verify_init_kernel,
-// poly_kernel, poly_shared_kernel).
+// An int8-plane entry read a coordinate at a time (add_pe_with): its 16-byte
+// chunk q at entry + 4q words. Coordinate c's lo words 5c..5c+4 are words
+// c..c+4 of chunks c and c+1, its hi words those of chunks c+5 and c+6.
+struct PlaneCoord {
+  const uint32_t* entry;
+
+  template <int C>
+  FE_HD Fe coord() const {
+    uint32_t lo[2][4], hi[2][4];
+    load_words(lo[0], entry + 4 * C);
+    load_words(lo[1], entry + 4 * (C + 1));
+    load_words(hi[0], entry + 4 * (C + 5));
+    load_words(hi[1], entry + 4 * (C + 6));
+    Fe r;
+#pragma unroll
+    for (int k = 0; k < NLIMBS / 4; k++)
+      decode_word(r.v + 4 * k, lo[(C + k) >> 2][(C + k) & 3], hi[(C + k) >> 2][(C + k) & 3]);
+    return r;
+  }
+};
+
+// A q_table of int8 planes at qt, read where it is used: Verify_Init's
+// subset-sum adds (verify_init_kernel) read whole entries, the double-scalar
+// multiply (poly_kernel: the lane's table in device memory; poly_shared_kernel:
+// one table in shared memory) a coordinate at a time.
 struct PlaneRows {
   uint32_t* qt;
   FE_HD void store(int i, const Pe& e) { store_entry(qt + i * kQtEntryWords, e); }
   FE_HD void prefetch(int) {}
   FE_HD Pe read(int i, bool) { return load_entry(qt + i * kQtEntryWords); }
+  FE_HD Ext add(const Ext& p, int i, bool) {
+    return add_pe_with(p, PlaneCoord{qt + i * kQtEntryWords});
+  }
 };
 
 // The packed fold-8 table, read by index (load_pa).
@@ -168,6 +204,9 @@ FE_HD int32_t build_qtable(Q& qt, const uint8_t* pk) {
 // u: the 32 8-fold digits of s; v: the 64 4-fold digits of h; qt: the lane's
 // q_table (its entries are read in the order v[0], ..., v[63], each requested
 // one step ahead); pa: the fold-8 table. Digits are read mod 256 and 16.
+// Steps: 31 x (double + PE add of v[i]), then 32 x (double + PA add of u[i]
+// + PE add of v[32 + i]), as one rolled loop whose PA add sits under a
+// warp-uniform branch, so the code of a double and a PE add appears once.
 template <class Q, class PA>
 FE_HD void poly_lane(uint8_t* out, const int32_t* u, const int32_t* v, Q& qt, const PA& pa) {
   qt.prefetch(v[0] & 15);
@@ -175,18 +214,15 @@ FE_HD void poly_lane(uint8_t* out, const int32_t* u, const int32_t* v, Q& qt, co
   const Pe q0 = qt.read(v[0] & 15, true);
   Ext s = {sub(q0.ypx, q0.ymx), add(q0.ypx, q0.ymx), q0.z2, mul(q0.t2d, ed_di())};
 #pragma unroll 1
-  for (int i = 1; i < 32; i++) {
-    const Ext d = dbl(s);
-    qt.prefetch(v[i + 1] & 15);
-    s = add_pe(d, qt.read(v[i] & 15, true));
-  }
-#pragma unroll 1
-  for (int i = 0; i < 32; i++) {
-    Fe ypx, ymx, t2d;
-    pa(ypx, ymx, t2d, u[i] & 255);
-    s = add_pa(dbl(s), ypx, ymx, t2d);
-    if (i < 31) qt.prefetch(v[33 + i] & 15);
-    s = add_pe(s, qt.read(v[32 + i] & 15, i < 31));
+  for (int i = 1; i < 64; i++) {
+    s = dbl(s);
+    if (i >= 32) {
+      Fe ypx, ymx, t2d;
+      pa(ypx, ymx, t2d, u[i - 32] & 255);
+      s = add_pa(s, ypx, ymx, t2d);
+    }
+    if (i < 63) qt.prefetch(v[i + 1] & 15);
+    s = qt.add(s, v[i] & 15, i < 63);
   }
   int32_t enc[32];
   pack_ext(enc, s);

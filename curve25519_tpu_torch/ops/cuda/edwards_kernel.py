@@ -47,8 +47,9 @@ def packed_table(nfolds, device):
 
 @functools.lru_cache(maxsize=None)
 def mma_table(device):
-    """The folding-8 table as the B operand of the sign kernel's tensor-core
-    gather (csrc/gather_mma.cuh), on `device`: entry e is 120 bytes, the low
+    """The folding-8 table as the B operand of the tensor-core gather of the
+    sign and fold-8 base-multiply kernels (csrc/gather_mma.cuh), on
+    `device`: entry e is 120 bytes, the low
     and the high byte of each of its 60 limbs (byte 2j + h of limb j), and
     the [256 entries x 120 bytes] matrix is stored per (k-step of 32
     entries, n-tile of 8 bytes) as the 32 lanes' two mma.sync B registers:
@@ -129,12 +130,13 @@ def base_mult(cut, zr=None, bp=None, mode="affine", nfolds=8):
     out = torch.empty((n, 32) if byte_mode else (n, 2 * NLIMBS),
                       dtype=torch.uint8 if byte_mode else torch.int32,
                       device=cut.device)
+    table = mma_table(cut.device) if nfolds == 8 else packed_table(
+        4, cut.device)
     build.launch("basemult", "basemult_launch", cut.device, out.data_ptr(),
                  cut.data_ptr(),
                  None if zr_rows is None else zr_rows.data_ptr(), zr_stride,
                  None if bp_rows is None else bp_rows.data_ptr(), bp_stride,
-                 packed_table(nfolds, cut.device).data_ptr(), nfolds,
-                 MODES[mode], n)
+                 table.data_ptr(), nfolds, MODES[mode], n)
     launches += 1
     if byte_mode:
         return unflatten(out)

@@ -1,6 +1,6 @@
-"""Wrappers of the CUDA Ed25519 verification kernels (csrc/verify.cu), the
-counterpart of curve25519_tpu/ops/pallas/verify_kernel.py, and their plain
-versions.
+"""Wrappers of the CUDA Ed25519 verification kernels (csrc/verify.cu,
+csrc/poly.cu, csrc/oneshot.cu), the counterpart of
+curve25519_tpu/ops/pallas/verify_kernel.py, and their plain versions.
 
 - ``verify_init(pk)``: [..., 32] uint8 public keys -> (planes [..., 16, 160]
   int8, ok [...] bool): the q_table of -Q as a verify context holds it
@@ -129,7 +129,7 @@ def poly_mult(u, v, planes):
     planes = _aligned(planes.contiguous() if shared
                       else _rows(planes, batch, n, QT_SHAPE))
     out = torch.empty((n, 32), dtype=torch.uint8, device=u.device)
-    build.launch("verify", "poly_launch", u.device, out.data_ptr(),
+    build.launch("poly", "poly_launch", u.device, out.data_ptr(),
                  u.data_ptr(), v.data_ptr(), planes.data_ptr(), int(shared),
                  edwards_kernel.packed_table(8, u.device).data_ptr(), n)
     launches["poly_shared" if shared else "poly"] += 1

@@ -184,13 +184,27 @@ def test_verify_kernels_equal_plain(dev, rng):
 
 
 def test_partial_warps_and_tiles(dev, rng):
-    """The sign kernel's warp-wide tensor-core gather on partial warps
-    (n = 1, 31, 33), plain and blinded; the persistent one-shot kernel with
+    """The warp-wide tensor-core gather of the sign and fold-8 base-multiply
+    kernels on partial warps and blocks (n = 1, 31, 33, 127, 129), plain and
+    blinded, every base-multiply mode; the persistent one-shot kernel with
     fewer lanes than one tile, than its grid, and more than its grid holds
     at once (its blocks loop over tiles), against the two phases."""
-    sk = on(dev, rng.integers(0, 256, (33, 32), dtype=np.uint8))
+    sk = on(dev, rng.integers(0, 256, (129, 32), dtype=np.uint8))
     ctx = blinding.blinding_init(b"warps", device=dev)
     zr = blinding.default_zr(device=dev)
+    cut = fold.cut8_bytes(sk)
+    for mode in edwards_kernel.MODES:
+        for bp in (None, ctx["bp"]):
+            want = edwards_kernel.base_mult_plain(cut, zr=ctx["zr"], bp=bp,
+                                                  mode=mode)
+            want = want if isinstance(want, tuple) else (want,)
+            for n in (1, 31, 33, 127, 129):
+                got = edwards_kernel.base_mult(cut[:n], zr=ctx["zr"], bp=bp,
+                                               mode=mode)
+                got = got if isinstance(got, tuple) else (got,)
+                assert all(torch.equal(g, w[:n]) for g, w in zip(got, want)), (
+                    mode, bp is not None, n)
+    sk = sk[:33]
     _, priv = ed25519.create_keypair(sk)
     msg = on(dev, rng.integers(0, 256, (33, 200), dtype=np.uint8))
     lengths = on(dev, rng.integers(0, 201, 33).astype(np.int32))

@@ -10,6 +10,7 @@ vectors carry the broad coverage. Inputs come from a seeded numpy
 generator. Tolerance: exact bytes (and exact limbs for the contexts).
 """
 
+import functools
 import shutil
 
 import numpy as np
@@ -27,9 +28,12 @@ from curve25519_tpu_torch import _custom_blind as tcb
 from curve25519_tpu_torch.models import blinding, ed25519, tables, x25519
 from curve25519_tpu_torch.ops import sha512
 from curve25519_tpu_torch.ops.cuda import build, edwards_kernel, sign_kernel
-from curve25519_tpu_torch.utils.interop import (
-    blinding_from_jax, from_numpy, to_numpy,
-)
+from curve25519_tpu_torch.utils import interop
+from curve25519_tpu_torch.utils.interop import to_numpy
+
+# the carriers default to the card: these tests ask for the CPU
+blinding_from_jax = functools.partial(interop.blinding_from_jax, device="cpu")
+from_numpy = functools.partial(interop.from_numpy, device="cpu")
 
 # RFC 8032 7.1 TEST 1-3 (the constants of tests/test_ed25519.py)
 VECS = [

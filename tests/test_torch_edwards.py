@@ -8,6 +8,7 @@ op order); every epilogue must give the bytes of the Python-integer oracle
 seeded numpy generator. Tolerance: exact.
 """
 
+import functools
 import shutil
 
 import numpy as np
@@ -27,9 +28,12 @@ from curve25519_tpu_torch.config import ELL, P, int_to_limbs, limbs_to_int
 from curve25519_tpu_torch.models import blinding, edwards, tables, x25519
 from curve25519_tpu_torch.ops import fold
 from curve25519_tpu_torch.ops.cuda import build, edwards_kernel
-from curve25519_tpu_torch.utils.interop import (
-    blinding_from_jax, from_numpy, to_numpy,
-)
+from curve25519_tpu_torch.utils import interop
+from curve25519_tpu_torch.utils.interop import to_numpy
+
+# the carriers default to the card: these tests ask for the CPU
+blinding_from_jax = functools.partial(interop.blinding_from_jax, device="cpu")
+from_numpy = functools.partial(interop.from_numpy, device="cpu")
 
 COORDS = ("x", "y", "z", "t")
 
@@ -177,15 +181,19 @@ def test_calculate_public_key_fast_equals_ladder(rng):
         x25519.calculate_public_key_fast(sk, nfolds=6)
 
 
-def host_basemult(lib, cut, zr, bp, mode, nfolds):
+def host_basemult(lib, cut, zr, bp, mode, nfolds, mma=False):
+    """basemult.cu's lane code built with g++: the masked scan, or (mma) the
+    host emulation of the fold-8 tensor-core gather."""
     n = len(cut)
     cut = np.ascontiguousarray(cut, np.int32)
-    table = to_numpy(edwards_kernel.packed_table(nfolds, torch.device("cpu")))
+    cpu = torch.device("cpu")
+    table = to_numpy(edwards_kernel.mma_table(cpu) if mma
+                     else edwards_kernel.packed_table(nfolds, cpu))
     byte_mode = mode in ("pk", "u_bytes")
     out = np.zeros((n, 32), np.uint8) if byte_mode else np.zeros((n, 40),
                                                                  np.int32)
     rc = lib.basemult_host(
-        out.ctypes.data, cut.ctypes.data,
+        int(mma), out.ctypes.data, cut.ctypes.data,
         None if zr is None else zr.ctypes.data, 0,
         None if bp is None else bp.ctypes.data, 0, table.ctypes.data, nfolds,
         edwards_kernel.MODES[mode], n)
@@ -193,8 +201,14 @@ def host_basemult(lib, cut, zr, bp, mode, nfolds):
     return out if byte_mode else (out[:, :20], out[:, 20:])
 
 
-@pytest.mark.parametrize("nfolds", [8, 4])
-def test_host_kernel_equals_plain(lib, rng, nfolds):
+@pytest.mark.parametrize("nfolds, mma", [
+    pytest.param(8, False, id="8"), pytest.param(4, False, id="4"),
+    pytest.param(8, True, id="8-mma")])
+def test_host_kernel_equals_plain(lib, rng, nfolds, mma):
+    """Every mode, with and without BP. The tensor-core gather's emulation
+    (the lane's digit at its own position in a warp whose other lanes ask for
+    other entries) runs on 3 lanes at positions 0, 1, 2 and is also held
+    against the masked scan."""
     sk = torch.from_numpy(rand_keys(rng, 3))
     cut = (fold.cut8_bytes if nfolds == 8 else fold.cut4_bytes)(sk)
     ctx = blinding.blinding_init(b"host", device="cpu")
@@ -204,7 +218,7 @@ def test_host_kernel_equals_plain(lib, rng, nfolds):
     for mode in edwards_kernel.MODES:
         for use_bp in (False, True):
             got = host_basemult(lib, to_numpy(cut), zr, bp if use_bp else None,
-                                mode, nfolds)
+                                mode, nfolds, mma)
             want = edwards_kernel.base_mult_plain(
                 cut, zr=ctx["zr"], bp=ctx["bp"] if use_bp else None,
                 mode=mode, nfolds=nfolds)
@@ -213,3 +227,11 @@ def test_host_kernel_equals_plain(lib, rng, nfolds):
                     np.testing.assert_array_equal(g, to_numpy(w))
             else:
                 np.testing.assert_array_equal(got, to_numpy(want))
+            if mma:
+                scan = host_basemult(lib, to_numpy(cut), zr,
+                                     bp if use_bp else None, mode, nfolds)
+                for g, w in zip(got if isinstance(got, tuple) else (got,),
+                                scan if isinstance(scan, tuple) else (scan,)):
+                    np.testing.assert_array_equal(g, w)
+    assert lib.basemult_host(1, None, None, None, 0, None, 0, None, 4, 0,
+                             0) == -1           # the emulation is fold 8 only

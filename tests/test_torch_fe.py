@@ -6,6 +6,8 @@ CPU. Tolerance: exact. Both sides use the same radix, so limbs must be equal,
 not just equal mod p.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +22,11 @@ from curve25519_tpu.ops import fe as jfe
 from curve25519_tpu_torch import config as tconfig
 from curve25519_tpu_torch.ops import codec as tcodec
 from curve25519_tpu_torch.ops import fe as tfe
-from curve25519_tpu_torch.utils.interop import from_numpy, to_numpy
+from curve25519_tpu_torch.utils import interop
+from curve25519_tpu_torch.utils.interop import to_numpy
+
+# the carriers default to the card: these tests ask for the CPU
+from_numpy = functools.partial(interop.from_numpy, device="cpu")
 
 P = jconfig.P
 
@@ -199,3 +205,6 @@ def test_interop_keeps_dtype_and_values(rng):
         np.testing.assert_array_equal(to_numpy(t), np.asarray(arr))
     with pytest.raises(TypeError):
         from_numpy(limbs.astype(np.int64))
+    if not torch.cuda.is_available():     # the default device is the card
+        with pytest.raises(RuntimeError):
+            interop.from_numpy(enc)

@@ -6,6 +6,7 @@ of ops/cuda/sha512_kernel.py; the g++ build of the kernel's lane code
 numpy generator. Tolerance: exact bytes (and exact words for the padding).
 """
 
+import functools
 import hashlib
 import shutil
 
@@ -21,7 +22,11 @@ from curve25519_tpu.ops.pallas import sha512_kernel as jshk
 
 from curve25519_tpu_torch.ops import sha512
 from curve25519_tpu_torch.ops.cuda import build, sha512_kernel
-from curve25519_tpu_torch.utils.interop import from_numpy, to_numpy
+from curve25519_tpu_torch.utils import interop
+from curve25519_tpu_torch.utils.interop import to_numpy
+
+# the carriers default to the card: these tests ask for the CPU
+from_numpy = functools.partial(interop.from_numpy, device="cpu")
 
 # the padding edges: one block holds up to 111 bytes, two up to 239
 EDGE_LENGTHS = [0, 1, 111, 112, 127, 128, 129, 239, 240, 255, 256]

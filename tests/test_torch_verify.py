@@ -16,6 +16,7 @@ vectors, to which tests/test_edge_encodings.py holds the JAX package.
 Tolerance: exact bytes, limbs and verdicts.
 """
 
+import functools
 import shutil
 
 import numpy as np
@@ -33,11 +34,15 @@ from curve25519_tpu.ops import fe as jfe
 from curve25519_tpu_torch.models import ed25519, edwards, tables
 from curve25519_tpu_torch.ops import fe, fold, sc
 from curve25519_tpu_torch.ops.cuda import build, edwards_kernel, verify_kernel
-from curve25519_tpu_torch.utils.interop import (
-    from_numpy, to_numpy, verify_ctx_from_jax,
-)
+from curve25519_tpu_torch.utils import interop
+from curve25519_tpu_torch.utils.interop import to_numpy
 
 from test_edge_encodings import MSG, VECTORS
+
+# the carriers default to the card: these tests ask for the CPU
+from_numpy = functools.partial(interop.from_numpy, device="cpu")
+verify_ctx_from_jax = functools.partial(interop.verify_ctx_from_jax,
+                                        device="cpu")
 
 N_EDGE = len(VECTORS)
 # the port's own lanes after the edge vectors: name -> expected verdict

@@ -8,6 +8,7 @@ exact bytes. The kernel itself is held against the plain version on the
 card by tests/test_torch_cuda.py.
 """
 
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -25,7 +26,11 @@ from curve25519_tpu.models import x25519 as jx25519
 from curve25519_tpu_torch.config import int_to_limbs
 from curve25519_tpu_torch.models import montgomery, x25519
 from curve25519_tpu_torch.ops.cuda import ladder_kernel
-from curve25519_tpu_torch.utils.interop import from_numpy, to_numpy
+from curve25519_tpu_torch.utils import interop
+from curve25519_tpu_torch.utils.interop import to_numpy
+
+# the carriers default to the card: these tests ask for the CPU
+from_numpy = functools.partial(interop.from_numpy, device="cpu")
 
 REPO = Path(__file__).resolve().parents[1]
 BATCH = 16
