@@ -23,7 +23,7 @@ nothing of JAX or of the JAX package. Phases, each printing a line:
    versions, byte for byte: 4,096 random lanes, ragged batches, rank-1 and
    broadcast calls, fold 8 and fold 4 with all four base-multiply modes (fold
    8 also at every ragged size), the blinded routes (which must not change a
-   byte), SHA-512 at the padding edges and sign at the fused cap (943/944-byte
+   byte; keygen and sign also at every ragged size), SHA-512 at the padding edges and sign at the fused cap (943/944-byte
    messages);
 7. Ed25519 known answers: RFC 8032 7.1 TEST 1-3, SHA-512 against hashlib,
    and random lanes (short and long messages) against an independent
@@ -34,7 +34,8 @@ nothing of JAX or of the JAX package. Phases, each printing a line:
    and fold 4 (held equal to the ladder's calculate_public_key on all
    lanes), sha512 of 64-byte messages, and the long-message sign (1,024
    lanes, 944-4,096 bytes); then each kernel timed against its plain
-   version at the same batch;
+   version at the same batch, and SHA-512 of 1,024 messages of up to 1 MiB
+   (the reference's sha512_long shape) against hashlib on a few lanes;
 9. the three verify kernels against their plain versions, byte for byte:
    4,096 lanes of valid, random (half of them off the curve) and edge keys,
    Verify_Init, the double-scalar multiply with a q_table per lane and with
@@ -73,6 +74,7 @@ MAIN_BATCH = 262_144          # the batch of bench.py's headline
 CHECK_LANES = 4096
 ORACLE_LANES = 4
 LONG_LANES = 1024             # the long-message sign route
+LONG_SHA_LANES = 1024         # the long-message SHA-512 row (1 MiB each)
 CSRC = "curve25519_tpu_torch/ops/cuda/csrc/"
 VERIFY_LANES = 512             # phase 9's signatures of ragged messages
 PALLAS = "curve25519_tpu/ops/pallas/"
@@ -736,7 +738,8 @@ def phase_ed_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
          sha512.sha512_plain(msg[:64], lengths[:64], prefix=prefix[0]),
          "one prefix broadcast over 64 messages")
 
-    # B6: plain and blinded keygen; ragged, rank-1
+    # B6: plain and blinded keygen; the warp-wide tensor-core gather on
+    # partial warps and blocks (ragged, plain and blinded), rank-1
     pk = sgk.keygen(sk, zr=zr)
     hold("keygen_kernel", pk, sgk.keygen_plain(sk, zr=zr), "random lanes")
     hold("keygen_kernel", sgk.keygen(sk, zr=ctx["zr"], bl=ctx["bl"],
@@ -744,6 +747,9 @@ def phase_ed_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
     for n in RAGGED:
         hold("keygen_kernel", sgk.keygen(sk[:n], zr=zr), pk[:n],
              "ragged %d" % n)
+        hold("keygen_kernel", sgk.keygen(sk[:n], zr=ctx["zr"], bl=ctx["bl"],
+                                         bp=ctx["bp"]), pk[:n],
+             "ragged %d, blinded" % n)
     hold("keygen_kernel", sgk.keygen(sk[9], zr=zr), pk[9], "rank-1")
 
     # B7: random lengths up to 64 bytes, the fused cap (943), blinded,
@@ -785,7 +791,8 @@ def phase_ed_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
           "SHA-512 random lengths and "
           "padding edges, prefix; keygen and sign (64 and 943 bytes fused, "
           "944 composed) plain and blinded with "
-          "blinding_init(b'chip-smoke'); ragged %s, rank-1, broadcast: "
+          "blinding_init(b'chip-smoke'), each also ragged; ragged %s, "
+          "rank-1, broadcast: "
           "byte-equal (max_abs_err %s)"
           % (lanes, "/".join(map(str, RAGGED)), errs))
     return errs
@@ -947,6 +954,7 @@ def phase_ed_main(dev, rng, card, counts, batch=MAIN_BATCH):
             sign_ops(w3_blocks), batch * (64 + 64 + 4 + 64)),
     }
     rows = time_kernels(cases, batch, card, 8)
+    time_long_sha512(dev, card)
     for label, fn, args in (
             ("create_keypair", ed25519.create_keypair, (seeds,)),
             ("sign", ed25519.sign, (priv, msg)),
@@ -956,6 +964,47 @@ def phase_ed_main(dev, rng, card, counts, batch=MAIN_BATCH):
         print("phase 8 profile [%s]: %s B=%d, 3 calls: %s"
               % (card, label, batch, profile(fn, *args)))
     return rows
+
+
+def time_long_sha512(dev, card, lanes=LONG_SHA_LANES, length=1 << 20):
+    """The long-message SHA-512 row in the reference's shape
+    (benchmarks/bench_suite.py, sha512_long): 1,024 lanes of 1 MiB with
+    lengths 0, 1, 111, L - 1, random and L, made on the card. The kernel on
+    the packed words is held against hashlib on a few lanes (the plain
+    version is too slow at this size) and timed; the rate counts hashed
+    bytes, the bound the active blocks."""
+    from curve25519_tpu_torch.ops import sha512
+    from curve25519_tpu_torch.ops.cuda import sha512_kernel as shk
+    from curve25519_tpu_torch.utils.profiling import bench
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    msg = torch.randint(0, 256, (lanes, length), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    lengths = torch.cat([
+        torch.tensor([0, 1, 111, length - 1], device=dev),
+        torch.randint(0, length + 1, (lanes - 5,), generator=gen, device=dev),
+        torch.tensor([length], device=dev)]).to(torch.int32)
+    pack_s, (words, nblocks, _) = timed_once(sha512.pack_words, msg, lengths)
+    digest = shk.sha512_blocks(words, nblocks)
+    for i in (0, 1, 2, 3, 4, lanes - 1):
+        check(row_bytes(digest[i]) == hashlib.sha512(
+            msg[i, :int(lengths[i])].cpu().numpy().tobytes()).digest(),
+            "long SHA-512 lane %d (%d bytes) != hashlib"
+            % (i, int(lengths[i])))
+    kernel_s = bench(shk.sha512_blocks, words, nblocks, reps=2, rounds=3)
+    hashed = int(lengths.to(torch.int64).sum())
+    active = int(nblocks.to(torch.int64).sum())
+    bms, by = bound_ms((0, active * SHA_BLOCK_ALU, 0),
+                       active * 128 + lanes * (4 + 64))
+    print("phase 8 timing [%s]: sha512_kernel long messages, %d lanes of "
+          "%d bytes (lengths 0, 1, 111, L-1, random, L; %d bytes hashed, %d "
+          "blocks): kernel %.3f ms (best of 3 x 2 after warm-up), %.2f GB/s "
+          "of hashed bytes | pack_words %.3f ms (one call) | bound %.3f ms "
+          "(%s), %.1f%% | == hashlib on 6 lanes"
+          % (card, lanes, length, hashed, active, kernel_s * 1e3,
+             hashed / kernel_s / 1e9, pack_s * 1e3, bms, by,
+             100 * bms / (kernel_s * 1e3)))
 
 
 def time_kernels(cases, batch, card, phase):

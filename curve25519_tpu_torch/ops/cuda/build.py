@@ -197,13 +197,13 @@ def load_host(so_path):
     lib.x25519_ladder_host.restype = None
     lib.fe25519_op_host.argtypes = [_int, _vp, _vp, _vp, _i64]
     lib.fe25519_op_host.restype = ctypes.c_int
-    lib.sha512_host.argtypes = [_vp, _vp, _vp, _i64, _i64]
+    lib.sha512_host.argtypes = [_int, _vp, _vp, _vp, _i64, _i64]
     lib.sha512_host.restype = None
     lib.basemult_host.argtypes = [_int, _vp, _vp, _vp, _i64, _vp, _i64, _vp,
                                   _int, _int, _i64]
     lib.basemult_host.restype = ctypes.c_int
-    lib.keygen_host.argtypes = [_vp, _vp, _vp, _i64, _vp, _i64, _vp, _i64,
-                                _vp, _i64]
+    lib.keygen_host.argtypes = [_int, _vp, _vp, _vp, _i64, _vp, _i64, _vp,
+                                _i64, _vp, _i64]
     lib.keygen_host.restype = None
     lib.sign_host.argtypes = [_vp, _vp, _vp, _i64, _vp, _vp, _i64, _vp, _vp,
                               _i64, _vp, _i64, _vp, _i64, _vp, _i64]

@@ -92,13 +92,10 @@ basemult_fold8_kernel(char* out, const int32_t* __restrict__ cut, const int32_t*
                       int64_t zr_stride, const int32_t* __restrict__ bp, int64_t bp_stride,
                       const uint32_t* __restrict__ table, int mode, int64_t n) {
   extern __shared__ __align__(16) uint32_t smem[];
-  for (int i = threadIdx.x; i < kMmaTableWords / 4; i += blockDim.x)
-    reinterpret_cast<uint4*>(smem)[i] = reinterpret_cast<const uint4*>(table)[i];
-  __syncthreads();
+  const MmaGather gather = load_mma_table(smem, table);
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if ((lane & ~(int64_t)31) >= n) return;  // the whole warp is past n
   const int64_t row = lane < n ? lane : n - 1;
-  const MmaGather gather{smem, (int32_t*)smem + kMmaTableWords + (threadIdx.x >> 5) * kStageWords};
   basemult_lane<32>(lane < n ? out + out_stride(mode) * lane : nullptr, cut + 32 * row,
                     zr ? zr + zr_stride * row : nullptr, bp ? bp + bp_stride * row : nullptr,
                     mode, gather);

@@ -168,6 +168,16 @@ struct MmaGather {
   }
 };
 
+// The table in B order (16-byte aligned) into the block's shared memory
+// `smem` (kMmaTableWords, then kStageWords per warp) with 16-byte loads;
+// then this thread's MmaGather over it.
+__device__ __forceinline__ MmaGather load_mma_table(uint32_t* smem, const uint32_t* table) {
+  for (int i = threadIdx.x; i < kMmaTableWords / 4; i += blockDim.x)
+    reinterpret_cast<uint4*>(smem)[i] = reinterpret_cast<const uint4*>(table)[i];
+  __syncthreads();
+  return MmaGather{smem, (int32_t*)smem + kMmaTableWords + (threadIdx.x >> 5) * kStageWords};
+}
+
 #endif  // __CUDACC__
 
 // Host emulation of one warp's gather: lanes 0..n-1 (n <= 32) get the 60

@@ -10,16 +10,36 @@
 // steps, becomes a plain loop over the lane's own blocks: a CUDA block has
 // no order across the grid. Block counts are public (message lengths).
 //
-// What bounds it on this card: int32 ALU issue (~3.7 K 32-bit operations
-// per 128-byte block for 80 rounds of 64-bit adds, rotates and logic) for
-// short messages; device-memory reads for long ones. The word rows are the
-// TPU's layout, one row per lane, so a warp's 32 loads of a word land 32
-// rows apart (uncoalesced): a known limit, kept for now; a lane-interleaved
-// word layout is later work.
+// What bounds it on this card: int32 ALU issue (~4 K instructions per
+// 128-byte block for 80 rounds of 64-bit adds, funnel-shift rotates and
+// three-input logic) for short messages; for long ones the serial round
+// chain of the warp that holds the longest message. Measured on the card
+// (PERF.md): the lane-by-lane 64 single-byte stores of each digest,
+// 16 lines per store instruction, took three quarters of the time, and the
+// uncoalesced word reads next to nothing. So both ends go through shared
+// memory:
+// - for block b, the warp copies its 32 lanes' 128-byte block rows with
+//   16-byte cp.async copies whose addresses run along each row (one
+//   instruction moves four whole rows) into a per-warp buffer whose row
+//   stride of 36 words keeps the copies and each lane's 16-byte reads of
+//   its own row free of bank conflicts; two buffers alternate, so block
+//   b + 1 is in flight while b compresses;
+// - each lane puts its digest in its row of the first buffer, and the warp
+//   stores the 32 digests as 16-byte pieces, 512 contiguous bytes per
+//   instruction.
+// The warp loops to its longest message (__reduce_max_sync); a lane whose
+// own count has run out skips the compression, and a row's block is copied
+// only while the row has it. Threads per block do not matter here (32 to
+// 128 measured alike, also at 1,024 lanes: one warp per SM sub-partition
+// either way), so blocks keep 128.
+//
+// A warp wholly past n leaves at once; the lanes of a partial warp past n
+// take row n - 1 and store nothing, so no row past n is read.
 //
 // Built by curve25519_tpu_torch/ops/cuda/build.py: with nvcc into a shared
 // library that ctypes loads (sha512_launch), and with g++ for the CPU tests
-// (sha512_host).
+// (sha512_host, which runs the lane code on each row, or the warp staging's
+// index arithmetic 32 lanes at a time).
 
 #include "sha512.cuh"
 
@@ -27,43 +47,159 @@
 #include <cuda_runtime.h>
 #endif
 
-// One lane: digest bytes of the first nblocks blocks of a padded word row
-// of nw half-words (a count past the row reads no further than the row).
-FE_HD void sha512_lane(uint8_t* out, const int32_t* row, int32_t nblocks, int64_t nw) {
-  uint64_t st[8], w[16];
-  sha512::init(st);
-  const int64_t nb = nblocks < nw / 32 ? nblocks : nw / 32;
-#pragma unroll 1
-  for (int64_t b = 0; b < nb; b++) {
-    sha512::load_block(w, row, b);
-    sha512::compress(st, w);
+constexpr int kStageStride = 36;               // int32 per staged row: 128 B + 16 B
+constexpr int kStageWords = 32 * kStageStride;  // one buffer of a warp
+
+// Active blocks of a row: its count, but no further than the row.
+FE_HD int32_t row_blocks(int32_t nblocks, int64_t nw) {
+  return nblocks < nw / 32 ? nblocks : (int32_t)(nw / 32);
+}
+
+// Thread t of a warp copies, for k = 0..7, the 16 bytes at word
+// stage_word(t) of the block row of the warp's lane stage_row(k, t).
+FE_HD int stage_row(int k, int t) { return 4 * k + (t >> 3); }
+FE_HD int stage_word(int t) { return 4 * (t & 7); }
+
+// The 16 message words of a staged row (kStageStride-strided, 16-byte
+// aligned).
+FE_HD void load_staged(uint64_t (&w)[16], const int32_t* row) {
+#ifdef __CUDA_ARCH__
+  const int4* r4 = reinterpret_cast<const int4*>(row);
+#pragma unroll
+  for (int q = 0; q < 8; q++) {
+    const int4 v = r4[q];
+    w[2 * q] = ((uint64_t)(uint32_t)v.x << 32) | (uint32_t)v.y;
+    w[2 * q + 1] = ((uint64_t)(uint32_t)v.z << 32) | (uint32_t)v.w;
   }
+#else
+  sha512::load_block(w, row, 0);
+#endif
+}
+
+FE_HD void store_digest(uint8_t* out, const uint64_t (&st)[8]) {
   int32_t md[64];
   sha512::digest_bytes(md, st);
 #pragma unroll
   for (int j = 0; j < 64; j++) out[j] = (uint8_t)md[j];
 }
 
+FE_HD uint32_t bswap32(uint32_t x) {
+  return (x >> 24) | ((x >> 8) & 0xFF00u) | ((x << 8) & 0xFF0000u) | (x << 24);
+}
+
+// The digest as 16 little-endian words of its stream bytes (word k: bytes
+// 4k..4k+3).
+FE_HD void digest_words(uint32_t (&d)[16], const uint64_t (&st)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    d[2 * i] = bswap32((uint32_t)(st[i] >> 32));
+    d[2 * i + 1] = bswap32((uint32_t)st[i]);
+  }
+}
+
+// The digests leave through the warp's first buffer: each lane puts its 16
+// words in its row, then thread t stores, for k = 0..3, 16-byte chunk
+// digest_chunk(t) of the digest of lane digest_row(k, t) (each store
+// instruction writes 512 contiguous bytes; 8 neighbouring threads read 8
+// rows, in distinct banks).
+FE_HD int digest_row(int k, int t) { return 8 * k + (t & 7); }
+FE_HD int digest_chunk(int t) { return t >> 3; }
+
+// One lane read from its own row: digest bytes of the first nblocks blocks
+// of a padded word row of nw half-words.
+FE_HD void sha512_lane(uint8_t* out, const int32_t* row, int32_t nblocks, int64_t nw) {
+  uint64_t st[8], w[16];
+  sha512::init(st);
+  const int32_t nb = row_blocks(nblocks, nw);
+#pragma unroll 1
+  for (int32_t b = 0; b < nb; b++) {
+    sha512::load_block(w, row, b);
+    sha512::compress(st, w);
+  }
+  store_digest(out, st);
+}
+
 #ifdef __CUDACC__
 
 constexpr int kBlock = 128;
+constexpr int kSmemBytes = 4 * 2 * kStageWords * (kBlock / 32);
+
+__device__ __forceinline__ void cp_async16(int32_t* dst, const int32_t* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// Copy block b of the rows of the warp that starts at row `base` into buf:
+// rows past n are row n - 1; a row is copied only while it has block b
+// (nb: this thread's own count, shuffled to the copying threads).
+__device__ __forceinline__ void stage_block(int32_t* buf, const int32_t* words, int64_t nw,
+                                            int64_t base, int64_t n, int32_t nb, int b, int t) {
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    const int r = stage_row(k, t);
+    const int32_t rnb = __shfl_sync(0xffffffffu, nb, r);
+    const int64_t src = base + r < n ? base + r : n - 1;
+    if (b < rnb)
+      cp_async16(buf + r * kStageStride + stage_word(t), words + src * nw + 32 * b + stage_word(t));
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
 __global__ void __launch_bounds__(kBlock)
 sha512_kernel(uint8_t* __restrict__ out, const int32_t* __restrict__ words,
               const int32_t* __restrict__ nblocks, int64_t nw, int64_t n) {
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  sha512_lane(out + 64 * lane, words + nw * lane, nblocks[lane], nw);
+  extern __shared__ __align__(16) int32_t stage[];
+  const int t = threadIdx.x & 31;
+  const int64_t base = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+  if (base >= n) return;  // the whole warp is past n
+  int32_t* buf = stage + (threadIdx.x >> 5) * 2 * kStageWords;
+  const int64_t row = base + t < n ? base + t : n - 1;
+  const int32_t nb = row_blocks(nblocks[row], nw);
+  const int32_t nb_max = __reduce_max_sync(0xffffffffu, nb);
+
+  uint64_t st[8], w[16];
+  sha512::init(st);
+  if (nb_max > 0) stage_block(buf, words, nw, base, n, nb, 0, t);
+#pragma unroll 1
+  for (int32_t b = 0; b < nb_max; b++) {
+    int32_t* cur = buf + (b & 1) * kStageWords;
+    if (b + 1 < nb_max) {
+      stage_block(buf + ((b + 1) & 1) * kStageWords, words, nw, base, n, nb, b + 1, t);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncwarp();
+    if (b < nb) {
+      load_staged(w, cur + t * kStageStride);
+      sha512::compress(st, w);
+    }
+    __syncwarp();  // every lane has read `cur` before it is refilled
+  }
+  uint32_t d[16];
+  digest_words(d, st);
+  uint4* own = reinterpret_cast<uint4*>(buf + t * kStageStride);
+#pragma unroll
+  for (int q = 0; q < 4; q++) own[q] = make_uint4(d[4 * q], d[4 * q + 1], d[4 * q + 2], d[4 * q + 3]);
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < 4; k++) {
+    const int r = digest_row(k, t), c = digest_chunk(t);
+    if (base + r < n)
+      reinterpret_cast<uint4*>(out + 64 * (base + r))[c] =
+          reinterpret_cast<const uint4*>(buf + r * kStageStride)[c];
+  }
 }
 
-// out: [n, 64] uint8; words: [n, nw] int32 (nw = 32 x blocks); nblocks: [n]
-// int32 active blocks per lane (<= nw / 32). Launches on `stream`,
-// allocates nothing, does not synchronize. Returns cudaGetLastError().
+// out: [n, 64] uint8; words: [n, nw] int32 (nw = 32 x blocks, 16-byte
+// aligned); nblocks: [n] int32 active blocks per lane (a count past the row
+// reads no further than the row). Launches on `stream`, allocates nothing,
+// does not synchronize. Returns cudaGetLastError().
 extern "C" int sha512_launch(void* out, const void* words, const void* nblocks, int64_t nw,
                              int64_t n, void* stream) {
   if (n > 0) {
     const unsigned blocks = (unsigned)((n + kBlock - 1) / kBlock);
-    sha512_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+    sha512_kernel<<<blocks, kBlock, kSmemBytes, (cudaStream_t)stream>>>(
         (uint8_t*)out, (const int32_t*)words, (const int32_t*)nblocks, nw, n);
   }
   return (int)cudaGetLastError();
@@ -75,8 +211,58 @@ extern "C" const char* cuda_error_string(int code) {
 
 #endif  // __CUDACC__
 
-// Host entry: the same per-lane code on the CPU, for the tests.
-extern "C" void sha512_host(uint8_t* out, const int32_t* words, const int32_t* nblocks,
-                            int64_t nw, int64_t n) {
+// The kernel's warp on the host: lanes base..base+31 of n, block by block
+// through two staging buffers with the kernel's index arithmetic (thread t's
+// copies, then each lane's read of its own staged row).
+static void sha512_warp_host(uint8_t* out, const int32_t* words, const int32_t* nblocks,
+                             int64_t nw, int64_t n, int64_t base) {
+  int32_t buf[2][kStageWords];
+  int32_t nb[32], nb_max = 0;
+  uint64_t st[32][8], w[16];
+  for (int t = 0; t < 32; t++) {
+    nb[t] = row_blocks(nblocks[base + t < n ? base + t : n - 1], nw);
+    nb_max = nb[t] > nb_max ? nb[t] : nb_max;
+    sha512::init(st[t]);
+  }
+  for (int32_t b = 0; b < nb_max; b++) {
+    int32_t* cur = buf[b & 1];
+    for (int t = 0; t < 32; t++)
+      for (int k = 0; k < 8; k++) {
+        const int r = stage_row(k, t);
+        const int64_t src = base + r < n ? base + r : n - 1;
+        if (b < nb[r])
+          for (int i = 0; i < 4; i++)
+            cur[r * kStageStride + stage_word(t) + i] = words[src * nw + 32 * b + stage_word(t) + i];
+      }
+    for (int t = 0; t < 32; t++)
+      if (b < nb[t]) {
+        load_staged(w, cur + t * kStageStride);
+        sha512::compress(st[t], w);
+      }
+  }
+  for (int t = 0; t < 32; t++) {
+    uint32_t d[16];
+    digest_words(d, st[t]);
+    for (int i = 0; i < 16; i++) buf[0][t * kStageStride + i] = (int32_t)d[i];
+  }
+  for (int t = 0; t < 32; t++)
+    for (int k = 0; k < 4; k++) {
+      const int r = digest_row(k, t), c = digest_chunk(t);
+      if (base + r < n)
+        for (int i = 0; i < 16; i++)  // little-endian words, as on the card
+          out[64 * (base + r) + 16 * c + i] =
+              (uint8_t)((uint32_t)buf[0][r * kStageStride + 4 * c + i / 4] >> (8 * (i % 4)));
+    }
+}
+
+// Host entry: the same code on the CPU, for the tests. staged = 0: each
+// lane from its own row (sha512_lane); staged = 1: the kernel's warp
+// staging, 32 lanes at a time, the last warp partial.
+extern "C" void sha512_host(int staged, uint8_t* out, const int32_t* words,
+                            const int32_t* nblocks, int64_t nw, int64_t n) {
+  if (staged) {
+    for (int64_t base = 0; base < n; base += 32) sha512_warp_host(out, words, nblocks, nw, n, base);
+    return;
+  }
   for (int64_t i = 0; i < n; i++) sha512_lane(out + 64 * i, words + nw * i, nblocks[i], nw);
 }

@@ -74,7 +74,32 @@ FE_HD void init(uint64_t (&st)[8]) {
   st[7] = 0x5BE0CD19137E2179ULL;
 }
 
-FE_HD uint64_t rotr(uint64_t x, int n) { return (x >> n) | (x << (64 - n)); }
+// x >> n and the rotate right by n (0 < n < 64; n is a constant where the
+// rounds are unrolled). On the card both act on the 32-bit halves by funnel
+// shifts, a rotate by 32 + k swapping the halves first.
+FE_HD uint64_t shr(uint64_t x, int n) {
+#ifdef __CUDA_ARCH__
+  const uint32_t lo = (uint32_t)x, hi = (uint32_t)(x >> 32);
+  return ((uint64_t)(hi >> n) << 32) | __funnelshift_r(lo, hi, n);
+#else
+  return x >> n;
+#endif
+}
+
+FE_HD uint64_t rotr(uint64_t x, int n) {
+#ifdef __CUDA_ARCH__
+  uint32_t lo = (uint32_t)x, hi = (uint32_t)(x >> 32);
+  if (n >= 32) {
+    const uint32_t t = lo;
+    lo = hi;
+    hi = t;
+    n -= 32;
+  }
+  return ((uint64_t)__funnelshift_r(hi, lo, n) << 32) | __funnelshift_r(lo, hi, n);
+#else
+  return (x >> n) | (x << (64 - n));
+#endif
+}
 
 // st += compression of the 16-word block w (w is consumed as the rolling
 // message schedule).
@@ -87,8 +112,8 @@ FE_HD void compress(uint64_t (&st)[8], uint64_t (&w)[16]) {
     for (int j = 0; j < 16; j++) {
       if (r > 0) {
         const uint64_t w2 = w[(j + 14) & 15], w15 = w[(j + 1) & 15];
-        w[j] += (rotr(w2, 19) ^ rotr(w2, 61) ^ (w2 >> 6)) + w[(j + 9) & 15] +
-                (rotr(w15, 1) ^ rotr(w15, 8) ^ (w15 >> 7));
+        w[j] += (rotr(w2, 19) ^ rotr(w2, 61) ^ shr(w2, 6)) + w[(j + 9) & 15] +
+                (rotr(w15, 1) ^ rotr(w15, 8) ^ shr(w15, 7));
       }
       const uint64_t t1 = h + (rotr(e, 14) ^ rotr(e, 18) ^ rotr(e, 41)) +
                           ((e & f) ^ (~e & g)) + round_k(r + j) + w[j];

@@ -23,20 +23,26 @@
 // and the registers small; the 8-fold digits live in a per-lane array
 // indexed by the step counter only.
 //
-// The sign kernel's 32 constant-time table reads run on the tensor cores
+// Both kernels' 32 constant-time table reads run on the tensor cores
 // (gather_mma.cuh): per warp and read, 240 int8 one-hot mma.sync products
 // over the table in shared memory, in B-fragment order, where the masked
-// scan of every entry (gather<256>, which keygen_kernel keeps) costs ~8 K ALU
-// operations per lane. No address and no branch depends on a digit: every
-// warp reads every entry, the digits only select values. mma.sync needs the
-// whole warp, so no lane returns before the end: the lanes of a partial warp
-// past n recompute lane n - 1 (their reads stay in bounds and their digits
-// in range) and store nothing, and the gather's own __syncwarp() follows the
-// per-lane SHA-512 loops, whose block counts differ.
+// scan of every entry (gather<256>) costs ~8 K ALU operations per lane. No
+// address and no branch depends on a digit: every warp reads every entry,
+// the digits only select values. Shared memory per block of 128 threads:
+// the 30 KB table and four warps' staging rows, 64 KB of dynamic memory
+// (keygen_kernel reserves 80 KB, see kKeygenSmemBytes).
+// mma.sync needs the whole warp, so no lane returns before the end: a warp
+// wholly past n leaves at once, the lanes of a partial warp past n
+// recompute lane n - 1 (their reads stay in bounds and their digits in
+// range) and store nothing, and the gather's own __syncwarp() follows
+// sign's per-lane SHA-512 loops, whose block counts differ. Keygen's steps
+// before the gathers (one SHA-512 block, the clamp, the blinded mod-l add)
+// are the same for every lane.
 //
 // Built by curve25519_tpu_torch/ops/cuda/build.py: with nvcc into a shared
 // library that ctypes loads (keygen_launch, sign_launch), and with g++ for
-// the CPU tests (keygen_host, sign_host with the masked scan, gather_host,
+// the CPU tests (keygen_host with the masked scan or the host emulation of
+// the tensor-core gather, sign_host with the masked scan, gather_host,
 // sc25519_op_host).
 
 #include "gather_mma.cuh"
@@ -92,14 +98,18 @@ FE_HD void blinded_base_pk(int32_t (&enc)[32], const Fe& scalar, const int32_t* 
   pack_ext(enc, s);
 }
 
+// pk: 32 bytes out, or null to store nothing; gather: a constant-time
+// gather policy of base_mult over the fold-8 table.
+template <class Gather>
 FE_HD void keygen_lane(uint8_t* pk, const uint8_t* seed, const int32_t* zr,
-                       const int32_t* bl, const int32_t* bp, const uint32_t* tbl) {
+                       const int32_t* bl, const int32_t* bp, const Gather& gather) {
   uint64_t md[8];
   seed_hash(md, seed);
   Fe a = secret_scalar(md);
   if (bl) a = sc25519::mod(a);  // the blinded route adds bl to a mod l
   int32_t enc[32];
-  blinded_base_pk(enc, a, zr, bl, bp, ScanGather<256>{tbl});
+  blinded_base_pk(enc, a, zr, bl, bp, gather);
+  if (!pk) return;
 #pragma unroll
   for (int j = 0; j < 32; j++) pk[j] = (uint8_t)enc[j];
 }
@@ -163,29 +173,29 @@ FE_HD void sign_lane(uint8_t* sig, const uint8_t* priv, const int32_t* w2, int32
 #ifdef __CUDACC__
 
 constexpr int kBlock = 128;
-constexpr int kTableWords = 256 * kEntryWords;
-
-__device__ __forceinline__ void load_table(uint32_t* dst, const uint32_t* src) {
-  for (int i = threadIdx.x; i < kTableWords; i += blockDim.x) dst[i] = src[i];
-  __syncthreads();
-}
+// Dynamic shared memory of keygen_kernel and sign_kernel: the table in B
+// order, then one staging area per warp (64 KB). keygen_kernel asks for
+// 16 KB more than it uses, so that two blocks (8 warps) share an SM where
+// three would fit: at 168 registers three blocks ran 0.8 ms slower on the
+// card (PERF.md), most likely for the L1 that their shared memory
+// takes from the lanes' local digit arrays.
+constexpr int kSignSmemBytes = 4 * (kMmaTableWords + (kBlock / 32) * kStageWords);
+constexpr int kKeygenSmemBytes = kSignSmemBytes + 16 * 1024;
 
 __global__ void __launch_bounds__(kBlock)
 keygen_kernel(uint8_t* __restrict__ pk, const uint8_t* __restrict__ sk,
               const int32_t* __restrict__ zr, int64_t zr_stride, const int32_t* __restrict__ bl,
               int64_t bl_stride, const int32_t* __restrict__ bp, int64_t bp_stride,
               const uint32_t* __restrict__ table, int64_t n) {
-  __shared__ __align__(16) uint32_t tbl[kTableWords];
-  load_table(tbl, table);
+  extern __shared__ __align__(16) uint32_t smem[];
+  const MmaGather gather = load_mma_table(smem, table);
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  keygen_lane(pk + 32 * lane, sk + 32 * lane, zr ? zr + zr_stride * lane : nullptr,
-              bl ? bl + bl_stride * lane : nullptr, bp ? bp + bp_stride * lane : nullptr, tbl);
+  if ((lane & ~(int64_t)31) >= n) return;  // the whole warp is past n
+  const int64_t row = lane < n ? lane : n - 1;
+  keygen_lane(lane < n ? pk + 32 * lane : nullptr, sk + 32 * row,
+              zr ? zr + zr_stride * row : nullptr, bl ? bl + bl_stride * row : nullptr,
+              bp ? bp + bp_stride * row : nullptr, gather);
 }
-
-// Dynamic shared memory of sign_kernel: the table in B order, then one
-// staging area per warp.
-constexpr int kSignSmemBytes = 4 * (kMmaTableWords + (kBlock / 32) * kStageWords);
 
 __global__ void __launch_bounds__(kBlock)
 sign_kernel(uint8_t* __restrict__ sig, const uint8_t* __restrict__ priv,
@@ -195,13 +205,10 @@ sign_kernel(uint8_t* __restrict__ sig, const uint8_t* __restrict__ priv,
             int64_t bl_stride, const int32_t* __restrict__ bp, int64_t bp_stride,
             const uint32_t* __restrict__ table, int64_t n) {
   extern __shared__ __align__(16) uint32_t smem[];
-  for (int i = threadIdx.x; i < kMmaTableWords / 4; i += blockDim.x)
-    reinterpret_cast<uint4*>(smem)[i] = reinterpret_cast<const uint4*>(table)[i];
-  __syncthreads();
+  const MmaGather gather = load_mma_table(smem, table);
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if ((lane & ~(int64_t)31) >= n) return;  // the whole warp is past n
   const int64_t row = lane < n ? lane : n - 1;
-  const MmaGather gather{smem, (int32_t*)smem + kMmaTableWords + (threadIdx.x >> 5) * kStageWords};
   sign_lane(lane < n ? sig + 64 * lane : nullptr, priv + 64 * row, w2 + nw2 * row, nb2[row],
             w3 + nw3 * row, nb3[row], zr ? zr + zr_stride * row : nullptr,
             bl ? bl + bl_stride * row : nullptr, bp ? bp + bp_stride * row : nullptr, gather);
@@ -209,15 +216,19 @@ sign_kernel(uint8_t* __restrict__ sig, const uint8_t* __restrict__ priv,
 
 // pk: [n, 32] uint8 out; sk: [n, 32] uint8 seeds; zr, bl: 20-limb int32
 // rows and bp: 80-limb rows at their strides (0: one shared row), each
-// possibly null (bl and bp together); table: the packed folding-8 table.
-// Launches on `stream`, allocates nothing, does not synchronize. Returns
-// cudaGetLastError().
+// possibly null (bl and bp together); table: the fold-8 table in B order
+// (edwards_kernel.mma_table, 16-byte aligned). Launches on `stream`,
+// allocates nothing, does not synchronize. Returns cudaGetLastError(), or
+// the error of a refused shared-memory attribute.
 extern "C" int keygen_launch(void* pk, const void* sk, const void* zr, int64_t zr_stride,
                              const void* bl, int64_t bl_stride, const void* bp,
                              int64_t bp_stride, const void* table, int64_t n, void* stream) {
   if (n > 0) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        keygen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kKeygenSmemBytes);
+    if (rc != cudaSuccess) return (int)rc;
     const unsigned blocks = (unsigned)((n + kBlock - 1) / kBlock);
-    keygen_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+    keygen_kernel<<<blocks, kBlock, kKeygenSmemBytes, (cudaStream_t)stream>>>(
         (uint8_t*)pk, (const uint8_t*)sk, (const int32_t*)zr, zr_stride, (const int32_t*)bl,
         bl_stride, (const int32_t*)bp, bp_stride, (const uint32_t*)table, n);
   }
@@ -226,8 +237,7 @@ extern "C" int keygen_launch(void* pk, const void* sk, const void* zr, int64_t z
 
 // sig: [n, 64] uint8 out; priv: [n, 64] uint8 (seed || pk); w2: [n, nw2] and
 // w3: [n, nw3] int32 padded word rows with nb2, nb3: [n] int32 active
-// blocks; table: the fold-8 table in B order (edwards_kernel.mma_table, 16-
-// byte aligned); the rest as keygen_launch.
+// blocks; the rest as keygen_launch.
 extern "C" int sign_launch(void* sig, const void* priv, const void* w2, int64_t nw2,
                            const void* nb2, const void* w3, int64_t nw3, const void* nb3,
                            const void* zr, int64_t zr_stride, const void* bl, int64_t bl_stride,
@@ -255,13 +265,23 @@ extern "C" const char* cuda_error_string(int code) {
 // ---------------------------------------------------------------------------
 // Host entries: the same per-lane code on the CPU, for the tests.
 // ---------------------------------------------------------------------------
-extern "C" void keygen_host(uint8_t* pk, const uint8_t* sk, const int32_t* zr,
+// mma = 0: the masked scan over the packed table
+// (edwards_kernel.packed_table(8)); mma = 1: the host emulation of the
+// tensor-core gather over the table in B order (edwards_kernel.mma_table),
+// lane i at position i % 32 of its warp.
+extern "C" void keygen_host(int mma, uint8_t* pk, const uint8_t* sk, const int32_t* zr,
                             int64_t zr_stride, const int32_t* bl, int64_t bl_stride,
                             const int32_t* bp, int64_t bp_stride, const uint32_t* table,
                             int64_t n) {
-  for (int64_t i = 0; i < n; i++)
-    keygen_lane(pk + 32 * i, sk + 32 * i, zr ? zr + zr_stride * i : nullptr,
-                bl ? bl + bl_stride * i : nullptr, bp ? bp + bp_stride * i : nullptr, table);
+  for (int64_t i = 0; i < n; i++) {
+    const int32_t* z = zr ? zr + zr_stride * i : nullptr;
+    const int32_t* l = bl ? bl + bl_stride * i : nullptr;
+    const int32_t* b = bp ? bp + bp_stride * i : nullptr;
+    if (mma)
+      keygen_lane(pk + 32 * i, sk + 32 * i, z, l, b, MmaGatherHost{table, (int)(i & 31)});
+    else
+      keygen_lane(pk + 32 * i, sk + 32 * i, z, l, b, ScanGather<256>{table});
+  }
 }
 
 extern "C" void sign_host(uint8_t* sig, const uint8_t* priv, const int32_t* w2, int64_t nw2,

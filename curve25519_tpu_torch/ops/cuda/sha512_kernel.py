@@ -120,6 +120,8 @@ def sha512_blocks(words, nblocks):
     if not use_cuda(words):
         return sha512_blocks_plain(words, nblocks)
     words, nblocks = words.contiguous(), nblocks.contiguous()
+    if words.data_ptr() % 16:       # the kernel copies 16-byte pieces
+        words = words.clone()
     out = torch.empty((n, 64), dtype=torch.uint8, device=words.device)
     build.launch("sha512", "sha512_launch", words.device, out.data_ptr(),
                  words.data_ptr(), nblocks.data_ptr(), nw, n)

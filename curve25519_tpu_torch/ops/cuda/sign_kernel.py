@@ -115,7 +115,7 @@ def keygen(sk, zr=None, bl=None, bp=None):
     pk = torch.empty((n, 32), dtype=torch.uint8, device=sk.device)
     build.launch("sign", "keygen_launch", sk.device, pk.data_ptr(),
                  sk.data_ptr(), *_pointers(rows),
-                 edwards_kernel.packed_table(8, sk.device).data_ptr(), n)
+                 edwards_kernel.mma_table(sk.device).data_ptr(), n)
     launches["keygen"] += 1
     return unflatten(pk)
 

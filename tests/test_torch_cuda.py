@@ -184,11 +184,13 @@ def test_verify_kernels_equal_plain(dev, rng):
 
 
 def test_partial_warps_and_tiles(dev, rng):
-    """The warp-wide tensor-core gather of the sign and fold-8 base-multiply
-    kernels on partial warps and blocks (n = 1, 31, 33, 127, 129), plain and
-    blinded, every base-multiply mode; the persistent one-shot kernel with
-    fewer lanes than one tile, than its grid, and more than its grid holds
-    at once (its blocks loop over tiles), against the two phases."""
+    """The warp-wide tensor-core gather of the keygen, sign and fold-8
+    base-multiply kernels on partial warps and blocks (n = 1, 31, 33, 127,
+    129), plain and blinded, every base-multiply mode; the SHA-512 kernel's
+    warp staging at those n with block counts (1-5) that differ inside each
+    warp; the persistent one-shot kernel with fewer lanes than one tile,
+    than its grid, and more than its grid holds at once (its blocks loop
+    over tiles), against the two phases."""
     sk = on(dev, rng.integers(0, 256, (129, 32), dtype=np.uint8))
     ctx = blinding.blinding_init(b"warps", device=dev)
     zr = blinding.default_zr(device=dev)
@@ -204,6 +206,11 @@ def test_partial_warps_and_tiles(dev, rng):
                 got = got if isinstance(got, tuple) else (got,)
                 assert all(torch.equal(g, w[:n]) for g, w in zip(got, want)), (
                     mode, bp is not None, n)
+    pk = sign_kernel.keygen_plain(sk, zr=zr)
+    for n in (1, 31, 33, 127, 129):
+        assert torch.equal(sign_kernel.keygen(sk[:n], zr=zr), pk[:n]), n
+        assert torch.equal(sign_kernel.keygen(
+            sk[:n], zr=ctx["zr"], bl=ctx["bl"], bp=ctx["bp"]), pk[:n]), n
     sk = sk[:33]
     _, priv = ed25519.create_keypair(sk)
     msg = on(dev, rng.integers(0, 256, (33, 200), dtype=np.uint8))
@@ -229,6 +236,11 @@ def test_partial_warps_and_tiles(dev, rng):
         assert torch.equal(r1, r[:n]) and torch.equal(ok1, ok[:n]), n
     plain = verify_kernel.verify_oneshot_plain(pk[:33], u[:33], v[:33])
     assert torch.equal(plain[0], r[:33]) and torch.equal(plain[1], ok[:33])
+    msg = on(dev, rng.integers(0, 256, (129, 600), dtype=np.uint8))
+    lengths = on(dev, rng.integers(0, 601, 129).astype(np.int32))
+    digest = sha512.sha512_plain(msg, lengths)
+    for n in (1, 31, 33, 127, 129):
+        assert torch.equal(sha512.sha512(msg[:n], lengths[:n]), digest[:n]), n
 
 
 def test_verify_paths_on_the_card(dev, rng):

@@ -220,6 +220,10 @@ def test_mixed_devices_raise():
 
 
 def test_host_kernels_equal_plain(lib, rng):
+    """keygen_host (plain and blinded) with the masked scan and with the
+    host emulation of keygen_kernel's tensor-core gather (mma = 1, lane i at
+    position i % 32 of its warp), and sign_host, against the plain
+    versions."""
     n = 4
     sk = rng.integers(0, 256, (n, 32), dtype=np.uint8)
     ctx = blinding.blinding_init(b"host", device="cpu")
@@ -227,15 +231,20 @@ def test_host_kernels_equal_plain(lib, rng):
     zr, bl = (np.ascontiguousarray(to_numpy(ctx[k])) for k in ("zr", "bl"))
     bp = np.ascontiguousarray(to_numpy(torch.cat(
         [ctx["bp"][k] for k in edwards_kernel.PE_KEYS])))
-    table = to_numpy(edwards_kernel.packed_table(8, torch.device("cpu")))
+    cpu = torch.device("cpu")
+    table = to_numpy(edwards_kernel.packed_table(8, cpu))
+    frag = to_numpy(edwards_kernel.mma_table(cpu))
     plain = sign_kernel.keygen_plain(from_numpy(sk),
                                      zr=blinding.default_zr(device="cpu"))
-    for args in ((dz, None, None), (zr, bl, bp)):
-        pk = np.zeros((n, 32), np.uint8)
-        z, b, q = (None if a is None else a.ctypes.data for a in args)
-        lib.keygen_host(pk.ctypes.data, sk.ctypes.data, z, 0, b, 0, q, 0,
-                        table.ctypes.data, n)
-        np.testing.assert_array_equal(pk, to_numpy(plain))
+    for mma, tbl in ((0, table), (1, frag)):
+        for args in ((dz, None, None), (zr, bl, bp)):
+            pk = np.zeros((n, 32), np.uint8)
+            z, b, q = (None if a is None else a.ctypes.data for a in args)
+            lib.keygen_host(mma, pk.ctypes.data, sk.ctypes.data, z, 0, b, 0,
+                            q, 0, tbl.ctypes.data, n)
+            np.testing.assert_array_equal(
+                pk, to_numpy(plain), err_msg="mma=%d blinded=%s"
+                % (mma, args[1] is not None))
 
     priv = np.concatenate([sk, pk], 1)
     msg = rng.integers(0, 256, (n, 200), dtype=np.uint8)

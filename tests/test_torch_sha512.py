@@ -109,20 +109,29 @@ def test_pack_words_equal_jax(rng):
 
 
 def test_host_kernel_equals_plain_and_hashlib(lib, rng):
-    msg = rng.integers(0, 256, (len(EDGE_LENGTHS), 256), dtype=np.uint8)
-    words, nblocks, _ = sha512.pack_words(
-        from_numpy(msg), from_numpy(np.array(EDGE_LENGTHS, np.int32)))
+    """sha512_host lane by lane (staged = 0) and through the kernel's warp
+    staging (staged = 1: 32 lanes at a time, the last warp partial) on the
+    padding edges and on 45 lanes of 0-600 bytes, whose block counts (1-5)
+    differ inside each warp."""
+    lengths = np.concatenate([EDGE_LENGTHS, [600, 0],
+                              rng.integers(0, 601, 32)]).astype(np.int32)
+    msg = rng.integers(0, 256, (len(lengths), 600), dtype=np.uint8)
+    words, nblocks, _ = sha512.pack_words(from_numpy(msg),
+                                          from_numpy(lengths))
     words = np.ascontiguousarray(to_numpy(words))
     nblocks = np.ascontiguousarray(to_numpy(nblocks))
-    out = np.zeros((len(msg), 64), np.uint8)
-    lib.sha512_host(out.ctypes.data, words.ctypes.data, nblocks.ctypes.data,
-                    words.shape[1], len(msg))
+    assert len(set(nblocks[:32])) > 1 and len(set(nblocks[32:])) > 1
     plain = sha512_kernel.sha512_blocks_plain(from_numpy(words),
                                               from_numpy(nblocks))
-    np.testing.assert_array_equal(out, to_numpy(plain))
-    assert [bytes(r) for r in out] == [
-        hashlib.sha512(m[:n].tobytes()).digest()
-        for m, n in zip(msg, EDGE_LENGTHS)]
+    for staged in (0, 1):
+        out = np.zeros((len(msg), 64), np.uint8)
+        lib.sha512_host(staged, out.ctypes.data, words.ctypes.data,
+                        nblocks.ctypes.data, words.shape[1], len(msg))
+        np.testing.assert_array_equal(out, to_numpy(plain),
+                                      err_msg="staged=%d" % staged)
+        assert [bytes(r) for r in out] == [
+            hashlib.sha512(m[:n].tobytes()).digest()
+            for m, n in zip(msg, lengths)]
 
 
 def test_sha512_bytes_and_the_device_rule():
