@@ -52,7 +52,20 @@ nothing of JAX or of the JAX package. Phases, each printing a line:
    and read just after: verify_init, verify_check against that context,
    verify_check of one key's signatures against its unbatched context, and
    the one-shot verify; every valid lane must verify and every tampered lane
-   fail; then each verify kernel timed against its plain version.
+   fail; then each verify kernel timed against its plain version;
+12. the rest of the single-device API on the card: sign_ragged and
+   verify_ragged of 65,536 messages of 0-1,200 bytes (10 SHA-512 block
+   buckets, both sign routes), each driven with the launch counts set to 0
+   just before it and read just after (Verify_Init once per batch, none
+   given a context; a rank-1 key takes the shared q_table), held against
+   the padded-batch sign, the Python-integer oracle and the tampered lanes,
+   then timed (the host's bucket packing alone, and a device profile); the
+   OO wrapper's card route against its host-core route, with the single-op
+   latency of each (median of 50 calls) and a profile of each card op; the
+   streaming Sha512 on the host core (64 MiB) and on the card, against
+   hashlib; sc.inv, to_mont / mont_mul / from_mont and exp_mod_bpo at 4,096
+   lanes against Python integers; a verify context of 16,384 keys saved and
+   loaded; and the custom tool's test vector (`t`) on the card.
 
 It prints the run's wall time, a JSON line of the kernels, the card line,
 then, as its last line, {"ok": true, "device": {...}}. Any failed check
@@ -61,8 +74,10 @@ exits non-zero before that.
 
 import hashlib
 import json
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -77,6 +92,11 @@ LONG_LANES = 1024             # the long-message sign route
 LONG_SHA_LANES = 1024         # the long-message SHA-512 row (1 MiB each)
 CSRC = "curve25519_tpu_torch/ops/cuda/csrc/"
 VERIFY_LANES = 512             # phase 9's signatures of ragged messages
+RAGGED_MSGS = 65_536          # phase 12: messages of 0-1,200 bytes
+RAGGED_MAX = 1200
+CTX_KEYS = 16_384             # phase 12: the saved verify context
+SC_LANES = 4096               # phase 12: the mod-l selftest ops
+OO_CALLS = 50                 # phase 12: calls per single-op latency
 PALLAS = "curve25519_tpu/ops/pallas/"
 # kernel -> (source, the TPU kernel body it replaces, its entry functions in
 # ptxas's report)
@@ -1305,23 +1325,22 @@ def phase_verify_main(dev, rng, card, counts, batch=MAIN_BATCH):
 
 
 def profile(fn, *args, calls=3):
-    """Device time by kernel name over `calls` calls (torch.profiler), and
-    the share of the window's host wall time that the device was busy. A
-    trace without device time falls back to CUDA events around the calls."""
-    from torch.profiler import ProfilerActivity
+    """Device time by kernel name over `calls` calls (a torch.profiler trace
+    read with utils.profiling.trace_device_events), and the share of the
+    window's host wall time that the device was busy. A trace without
+    device time falls back to CUDA events around the calls."""
+    from curve25519_tpu_torch.utils import profiling
     fn(*args)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn(*args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    per = [(e.key, e.device_time_total) for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.device_time_total > 0]
-    busy = sum(t for _, t in per) / 1e6
+    with tempfile.TemporaryDirectory() as logdir:
+        with profiling.trace(logdir):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        per = profiling.trace_device_events(logdir)
+    busy = sum(v["total_us"] for v in per.values()) / 1e6
     if not per:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0 = time.perf_counter()
@@ -1334,10 +1353,305 @@ def profile(fn, *args, calls=3):
         ms = start.elapsed_time(end)
         return ("no device time in the trace; CUDA events %.3f ms/call, "
                 "%.3f ms host wall" % (ms / calls, wall * 1e3))
-    top = sorted(per, key=lambda kv: -kv[1])[:4]
+    top = list(per.items())[:4]
     return "%s | device busy %.1f%% of %.3f ms host wall" % (
-        ", ".join("%s %.3f ms/call" % (k[:40], t / 1e3 / calls)
-                  for k, t in top), 100 * busy / wall, wall * 1e3)
+        ", ".join("%s %.3f ms/call" % (k[:40], v["total_us"] / 1e3 / calls)
+                  for k, v in top), 100 * busy / wall, wall * 1e3)
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the rest of the single-device API
+# ---------------------------------------------------------------------------
+def ragged_launches(lengths, route):
+    """The kernel launches of one ragged call over messages of `lengths`:
+    per SHA-512 block bucket, the fused sign (one launch) or the composed
+    one (3 SHA-512 and 1 base multiply); a verify check is one SHA-512 and
+    one double-scalar multiply."""
+    from curve25519_tpu_torch.ops.cuda import sign_kernel
+    from curve25519_tpu_torch.utils import bucketing
+    want = {}
+
+    def add(k, n=1):
+        want[k] = want.get(k, 0) + n
+
+    for nb in bucketing.bucket_indices(lengths):
+        if route == "sign" and sign_kernel.max_fused_msg_len(
+                bucketing.bucket_length(nb)):
+            add("sign_kernel")
+        elif route == "sign":
+            add("sha512_kernel", 3)
+            add("basemult_kernel")
+        else:
+            add("sha512_kernel")
+            add(route)
+    return want
+
+
+def phase_api(dev, rng, card, counts):
+    lines = phase_ragged(dev, rng, card, counts)
+    lines += phase_oo(dev, rng, card, counts)
+    lines += phase_host_and_selftest(dev, rng)
+    for line in lines:
+        print("phase 12 " + line)
+
+
+def phase_ragged(dev, rng, card, counts, n=RAGGED_MSGS):
+    from curve25519_tpu_torch.models import blinding, ed25519
+    from curve25519_tpu_torch.utils import bucketing
+
+    lengths = rng.integers(0, RAGGED_MAX + 1, n)
+    flat = rng.bytes(int(lengths.sum()))
+    ofs = np.concatenate([[0], np.cumsum(lengths)])
+    msgs = [flat[ofs[i]:ofs[i + 1]] for i in range(n)]
+    nbuckets = len(bucketing.bucket_indices(lengths))
+    check(nbuckets == 10, "%d buckets, expected 10" % nbuckets)
+    seeds = rand_bytes(rng, (n, 32), dev)
+    pk, priv = ed25519.create_keypair(seeds)
+    ctx_bl = blinding.blinding_init(b"chip-smoke ragged", device=dev)
+    lines = []
+
+    def path(label, launched, fn, *args, **kw):
+        out, wall, got = counts.drive(lambda: fn(*args, **kw))
+        others = {k: v for k, v in got.items() if k not in launched}
+        check(all(got[k] == v for k, v in launched.items())
+              and not any(others.values()), "%s launched %s, expected %s"
+              % (label, got, launched))
+        # a second call, warm, for the rate
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args, **kw)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        lines.append("ragged %s: %d messages, host wall %.3f s (warm %.3f s, "
+                     "%.0f messages/s) (%s)" % (
+                         label, n, wall, warm, n / warm, ", ".join(
+                             "%s %d" % kv for kv in sorted(launched.items())
+                             if kv[1])))
+        return out
+
+    want_sign = ragged_launches(lengths, "sign")
+    sig = path("sign_ragged", want_sign, ed25519.sign_ragged, priv, msgs)
+    padded = np.zeros((n, RAGGED_MAX), np.uint8)
+    for i, m in enumerate(msgs):
+        padded[i, :len(m)] = np.frombuffer(m, np.uint8)
+    msg_len = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+    check(torch.equal(sig, ed25519.sign(priv, torch.from_numpy(padded).to(dev),
+                                        msg_len)),
+          "sign_ragged != the padded-batch sign")
+    sample = [int(np.argmin(lengths)), int(np.argmax(lengths)), 1, n // 2,
+              n - 1]
+    for i in sample:
+        check(row_bytes(sig[i]) == oracle_ed25519_sign(
+            row_bytes(seeds[i]), row_bytes(pk[i]), msgs[i]),
+            "ragged lane %d (%d bytes) disagrees with the Python oracle"
+            % (i, lengths[i]))
+    sig_bl = path("sign_ragged blinded", want_sign, ed25519.sign_ragged,
+                  priv, msgs, blinding=ctx_bl)
+    check(torch.equal(sig_bl, sig), "the blinded ragged sign changed a "
+          "signature")
+
+    bad = [3, n // 3, n - 2]
+    sig[bad[0], 0] ^= 1                           # R
+    sig[bad[1], 40] ^= 1                          # S
+    sig[bad[2]] = sig[bad[2] - 1]                 # another message's
+    want = torch.ones(n, dtype=torch.bool, device=dev)
+    want[bad] = False
+    checks = ragged_launches(lengths, "poly_kernel")
+    got = path("verify_ragged", dict(checks, verify_init_kernel=1),
+               ed25519.verify_ragged, sig, pk, msgs)
+    check(torch.equal(got, want), "verify_ragged: %d of %d lanes wrong"
+          % (int((got != want).sum()), n))
+    ctx = ed25519.verify_init(pk)
+    got = path("verify_ragged given a ctx", checks, ed25519.verify_ragged,
+               sig, None, msgs, ctx=ctx)
+    check(torch.equal(got, want), "verify_ragged with a ctx: lanes wrong")
+
+    sig1 = ed25519.sign_ragged(priv[0], msgs)
+    sig1[bad[0], 63] ^= 1
+    shared = ragged_launches(lengths, "poly_shared_kernel")
+    got = path("verify_ragged one key", dict(shared, verify_init_kernel=1),
+               ed25519.verify_ragged, sig1, pk[0], msgs)
+    want1 = torch.ones(n, dtype=torch.bool, device=dev)
+    want1[bad[0]] = False
+    check(torch.equal(got, want1), "verify_ragged of one key: lanes wrong")
+    lines.append("ragged checks: %d buckets; sign_ragged == the padded-batch "
+                 "sign and the Python oracle on %d lanes, blinded unchanged; "
+                 "verify_ragged true on every valid lane, false on the %d "
+                 "tampered" % (nbuckets, len(sample), len(bad)))
+
+    # where a ragged call's time goes: the host's bucket packing alone (a
+    # function that returns the lengths), then the device in a trace
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bucketing.apply_bucketed(lambda m, l: l, msgs, device=dev)
+    torch.cuda.synchronize()
+    lines.append("ragged bucket packing alone (host, to the card): %.3f s"
+                 % (time.perf_counter() - t0))
+    for label, fn, args in (
+            ("sign_ragged", ed25519.sign_ragged, (priv, msgs)),
+            ("verify_ragged given a ctx",
+             lambda *a: ed25519.verify_ragged(*a, ctx=ctx),
+             (sig, None, msgs))):
+        lines.append("ragged profile [%s]: %s, 3 calls: %s"
+                     % (card, label, profile(fn, *args)))
+    return lines
+
+
+def median_ms(fn, calls=OO_CALLS):
+    """Median host wall time of `calls` calls, the card synchronized
+    around each."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def phase_oo(dev, rng, card, counts):
+    from curve25519_tpu_torch import oo
+
+    a_sk, b_sk, seed = rng.bytes(32), rng.bytes(32), rng.bytes(32)
+    msg = rng.bytes(64)
+    routes = {"card": {}, "host core": {"native": True}}
+    out = {}
+    for name, kw in routes.items():
+        def run():
+            a = oo.X25519Private(a_sk, **kw)
+            b_pk = oo.X25519Private(b_sk, **kw).get_public_key()
+            k = oo.ED25519Private(seed, **kw)
+            sig = k.sign(msg)
+            pub = oo.ED25519Public(k.get_public_key(), **kw)
+            bad = sig[:5] + bytes([sig[5] ^ 1]) + sig[6:]
+            return (a.get_public_key(), b_pk, a.create_shared_key(b_pk, False),
+                    a.create_shared_key(b_pk), k.get_public_key(), sig,
+                    pub.verify(sig, msg), pub.verify(bad, msg))
+        out[name], _, got = counts.drive(run)
+        if name == "card":
+            for k in ("x25519_ladder_kernel", "keygen_kernel", "sign_kernel",
+                      "sha512_kernel", "verify_init_kernel",
+                      "poly_shared_kernel"):
+                check(got[k] > 0, "the oo card route launched no %s" % k)
+        else:
+            check(not any(got.values()), "the host-core route launched %s"
+                  % got)
+    check(out["card"] == out["host core"], "the oo card and host-core routes "
+          "disagree")
+    check(out["card"][6] is True and out["card"][7] is False,
+          "oo verify verdicts wrong")
+    check(out["card"][5] == oracle_ed25519_sign(seed, out["card"][4], msg),
+          "oo signature disagrees with the Python oracle")
+
+    lat, profiles = {}, []
+    for name, kw in routes.items():
+        a = oo.X25519Private(a_sk, **kw)
+        k = oo.ED25519Private(seed, **kw)
+        sig = k.sign(msg)
+        pub = oo.ED25519Public(k.get_public_key(), **kw)
+        pub.verify(sig, msg)
+        b_pk = out[name][1]
+        ops = {"create_shared_key": (a.create_shared_key, b_pk),
+               "ED25519Private()": (lambda s: oo.ED25519Private(s, **kw),
+                                    seed),
+               "sign": (k.sign, msg),
+               "verify": (pub.verify, sig, msg)}
+        lat[name] = {op: median_ms(lambda: f(*args))
+                     for op, (f, *args) in ops.items()}
+        if name == "card":
+            profiles += ["oo profile [%s]: card %s, 3 calls: %s"
+                         % (card, op, profile(*fa)) for op, fa in ops.items()]
+    return ["oo: card and host-core routes equal (public keys, raw and KDF "
+            "shared secrets, signature, verdicts)"] + [
+        "oo single-op latency [%s], %s, median of %d ms: %s" % (
+            card, name, OO_CALLS, ", ".join("%s %.3f" % kv
+                                            for kv in lat[name].items()))
+        for name in routes] + profiles
+
+
+def phase_host_and_selftest(dev, rng):
+    from curve25519_tpu_torch.models import ed25519
+    from curve25519_tpu_torch.ops import sc
+    from curve25519_tpu_torch.ops.sha512 import Sha512
+    from curve25519_tpu_torch.tools import custom_tool
+    from curve25519_tpu_torch.utils import checkpoint
+    lines = []
+
+    # the streaming SHA-512: 64 MiB on the host core, a few KiB on the card
+    data = rng.bytes(64 << 20)
+    h, ofs, pieces = Sha512(), 0, [1, 127, 128, 129, 4093, 65537,
+                                   (1 << 20) + 3]
+    t0 = time.perf_counter()
+    while ofs < len(data):
+        step = pieces[ofs % len(pieces)]
+        h.update(data[ofs:ofs + step])
+        ofs += step
+    host = h.final()
+    wall = time.perf_counter() - t0
+    check(host == hashlib.sha512(data).digest(), "Sha512() != hashlib")
+    small = data[:3000]
+    t0 = time.perf_counter()
+    hd = Sha512(device=dev)
+    for a, b in ((0, 1), (1, 129), (129, 1000), (1000, 3000)):
+        hd.update(small[a:b])
+        check(len(hd._tail) < 128, "the streaming tail grew past a block")
+    check(hd.final() == hashlib.sha512(small).digest(),
+          "Sha512(device=cuda) != hashlib")
+    lines.append("Sha512 streaming == hashlib: host core 64 MiB in uneven "
+                 "pieces %.3f s (%.0f MB/s); card 3,000 bytes %.3f s"
+                 % (wall, len(data) / wall / 1e6, time.perf_counter() - t0))
+
+    # the mod-l selftest ops against Python integers
+    xb = rand_bytes(rng, (SC_LANES, 32), dev)
+    eb = rand_bytes(rng, (SC_LANES, 32), dev)
+    x = sc.from_bytes(xb)
+    xs = [int.from_bytes(row_bytes(r), "little") % ELL for r in xb]
+    es = [int.from_bytes(row_bytes(r), "little") for r in eb]
+
+    def ints(t):
+        return [int.from_bytes(row_bytes(r), "little") for r in sc.to_bytes(t)]
+
+    t0 = time.perf_counter()
+    got = {"inv": ints(sc.inv(x)),
+           "to_mont": ints(sc.to_mont(x)),
+           "mont_mul": ints(sc.mont_mul(sc.to_mont(x), sc.to_mont(x))),
+           "from_mont": ints(sc.from_mont(sc.to_mont(x))),
+           "exp_mod_bpo": ints(sc.exp_mod_bpo(x, eb))}
+    wall = time.perf_counter() - t0
+    want = {"inv": [pow(v, ELL - 2, ELL) for v in xs],
+            "to_mont": [v * 2**256 % ELL for v in xs],
+            "mont_mul": [v * v * 2**256 % ELL for v in xs],
+            "from_mont": xs,
+            "exp_mod_bpo": [pow(v, e, ELL) for v, e in zip(xs, es)]}
+    for k in want:
+        check(got[k] == want[k], "sc.%s disagrees with Python integers" % k)
+    lines.append("sc.inv, to_mont / mont_mul / from_mont, exp_mod_bpo at %d "
+                 "lanes on the card == Python integers (%.3f s)"
+                 % (SC_LANES, wall))
+
+    # a verify context through a checkpoint
+    pk, priv = ed25519.create_keypair(rand_bytes(rng, (CTX_KEYS, 32), dev))
+    msg = rand_bytes(rng, (CTX_KEYS, 64), dev)
+    sig = ed25519.sign(priv, msg)
+    sig[CTX_KEYS // 2, 9] ^= 1
+    ctx = ed25519.verify_init(pk)
+    before = ed25519.verify_check(ctx, sig, msg)
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save_verify_ctx(Path(d) / "ctx", ctx)
+        back = checkpoint.load_verify_ctx(Path(d) / "ctx")
+    check(all(back[k].is_cuda and torch.equal(back[k], ctx[k])
+              for k in ("pk", "planes", "ok")), "the reloaded ctx differs")
+    after = ed25519.verify_check(back, sig, msg)
+    check(torch.equal(after, before) and int((~before).sum()) == 1,
+          "verdicts changed across the checkpoint")
+    lines.append("checkpoint: a verify ctx of %d keys saved and loaded, the "
+                 "same verdicts" % CTX_KEYS)
+
+    rc = custom_tool.main(["t", "chip-smoke seed", "chip-smoke message"])
+    check(rc == 0, "custom_tool t exited %d" % rc)
+    lines.append("custom_tool t: 0 (refmodel, the card, the host core)")
+    return lines
 
 
 def main():
@@ -1365,6 +1679,7 @@ def main():
     errs.update(phase_verify_kernels_vs_plain(dev, rng))
     phase_verify_known_answers(dev, rng)
     rows.update(phase_verify_main(dev, rng, card, counts))
+    phase_api(dev, rng, card, counts)
     check("jax" not in sys.modules and "curve25519_tpu" not in sys.modules,
           "the port imported jax or the JAX package")
 

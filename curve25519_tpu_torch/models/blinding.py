@@ -65,6 +65,13 @@ def static_blinding(device=None):
                           pick_device(device=device))
 
 
+def _bootstrap(device=None):
+    """The bootstrap context that the custom tool chains the static context
+    through: b = 0, zr_bytes = 0x42 x 32, BP = the identity."""
+    return _ctx_from_ints(0, b"\x42" * 32, refmodel.IDENTITY,
+                          pick_device(device=device))
+
+
 def blinding_init(seed: bytes, parent=None, device=None):
     """Derive a fresh blinding context from a seed, chained through
     `parent` (default: the static context). Host-side big-int arithmetic;

@@ -12,9 +12,12 @@ max_fused_msg_len (943 bytes); longer messages take the composition of the
 SHA-512 and base-multiply kernels. `verify_init` is one launch of the
 Verify_Init kernel, `verify_check` two (SHA-512 for h, then the poly kernel
 with a q_table per lane, or the shared one for an unbatched context) and
-`verify` two (SHA-512, then the one-shot kernel). On the CPU all of them
-run their plain versions. A blinding context (models/blinding.py) changes
-no output byte.
+`verify` two (SHA-512, then the one-shot kernel). `sign_ragged` and
+`verify_ragged` take a list of messages of any lengths and make one such
+call per SHA-512 block count (utils/bucketing.py); `verify_ragged` runs
+`verify_init` once for the whole batch, or not at all given a context. On
+the CPU all of them run their plain versions. A blinding context
+(models/blinding.py) changes no output byte.
 
 Verification semantics (those of the JAX package, frozen by
 tests/test_edge_encodings.py): a y >= p decodes as y - p; x = 0 with the
@@ -32,9 +35,11 @@ from curve25519_tpu_torch.ops import codec, fe, fold, sc, sha512
 from curve25519_tpu_torch.ops.cuda import (
     as_bytes, pick_device, sign_kernel, verify_kernel,
 )
+from curve25519_tpu_torch.utils import bucketing
 
 __all__ = ["create_keypair", "sign", "verify", "verify_init", "verify_check",
-           "verify_tablefree", "verify_finish", "calculate_x", "unpack_point"]
+           "verify_tablefree", "verify_finish", "sign_ragged", "verify_ragged",
+           "calculate_x", "unpack_point"]
 
 
 def _blinding_args(blinding, device):
@@ -182,6 +187,37 @@ def verify_tablefree(sig, pk, msg, msg_len=None, strict=False, device=None):
 
 def _select_point(mask, a, b):
     return {k: fe.select(mask, a[k], b[k]) for k in a}
+
+
+# ---------------------------------------------------------------------------
+# Ragged batches: one fixed-shape call per SHA-512 block count
+# ---------------------------------------------------------------------------
+def sign_ragged(priv, msgs, blinding=None, device=None):
+    """Signatures [N, 64] of a list of N messages of any lengths, in input
+    order: priv [N, 64] or one [64] key for all."""
+    priv = as_bytes(priv, "priv", 64, pick_device(priv, device=device))
+    return bucketing.apply_bucketed(
+        lambda m, l, p: sign(p, m, l, blinding=blinding), msgs,
+        priv.expand(len(msgs), 64))
+
+
+def verify_ragged(sig, pk, msgs, strict=False, ctx=None, device=None):
+    """Verdicts [N] of signatures sig [N, 64] over a list of N messages of
+    any lengths, in input order: pk [N, 32], or one [32] key for all.
+    verify_init runs exactly once for the whole batch, or not at all when
+    `ctx` (from verify_init; pk is then not read) is given. A rank-1 pk or
+    an unbatched ctx serves every bucket through one shared q_table."""
+    if ctx is None:
+        ctx = verify_init(pk, device=device)
+    sig = as_bytes(sig, "sig", 64, ctx["pk"].device).expand(len(msgs), 64)
+    if ctx["planes"].ndim == 2:
+        return bucketing.apply_bucketed(
+            lambda m, l, s: verify_check(ctx, s, m, l, strict=strict), msgs,
+            sig)
+    return bucketing.apply_bucketed(
+        lambda m, l, s, pk, planes, ok: verify_check(
+            {"pk": pk, "planes": planes, "ok": ok}, s, m, l, strict=strict),
+        msgs, sig, ctx["pk"], ctx["planes"], ctx["ok"])
 
 
 def verify_finish(ctx):

@@ -21,10 +21,12 @@ import torch
 
 from curve25519_tpu_torch.config import BITS, ELL, MASK, NLIMBS, int_to_limbs
 from curve25519_tpu_torch.ops import fe
+from curve25519_tpu_torch.ops.cuda import as_bytes
 from curve25519_tpu_torch.ops.fe import _carry_seq as _carry, _mul_cols
 
 __all__ = ["from_int", "mod", "add", "neg", "sub_from_ell", "mul", "muladd",
-           "from_bytes", "from_bytes_raw", "to_bytes", "from_digest"]
+           "from_bytes", "from_bytes_raw", "to_bytes", "from_digest", "inv",
+           "mont_mul", "to_mont", "from_mont", "exp_mod_bpo"]
 
 _ELL_LIMBS = int_to_limbs(ELL)
 _DELTA_LIMBS = int_to_limbs(ELL - 2**252)        # 125-bit delta
@@ -143,3 +145,59 @@ def from_digest(md):
     j = _const("fd_j", dev)
     w = b[..., j] | (b[..., j + 1] << 8) | (b[..., j + 2] << 16)
     return _reduce40((w >> _const("fd_s", dev)) & MASK)
+
+
+# ---------------------------------------------------------------------------
+# Selftest-level API: inversion, Montgomery form and a runtime exponent
+# (reference eco_InvModBPO, eco_MontMul, eco_ToMont, eco_FromMont and
+# eco_ExpModBPO). Plain torch on mul, on every device.
+# ---------------------------------------------------------------------------
+def _square_and_multiply(t, x, bits):
+    """For each bit b of `bits` (most significant first): t = t^2, then
+    t = t*x where b is set. Both products are computed for every bit and
+    the result selected, so the work does not depend on the exponent."""
+    for bit in bits:
+        t = mul(t, t)
+        t = torch.where((bit == 1)[..., None], mul(t, x), t)
+    return t
+
+
+def inv(x):
+    """1/x mod l as x^(l-2); 0 maps to 0."""
+    e = ELL - 2
+    bits = torch.tensor([(e >> i) & 1 for i in range(251, -1, -1)],
+                        dtype=torch.int32, device=x.device)
+    # t = x stands for the top bit (252) of l - 2
+    return _square_and_multiply(x, x, bits.unbind(0))
+
+
+# Montgomery form with R = 2^256. The reduction above already reduces a
+# double-width product in one step, so x*y/R is a multiply by R^-1 mod l.
+_R_MONT = pow(2, 256, ELL)
+_RINV_MONT = pow(_R_MONT, ELL - 2, ELL)
+
+
+def mont_mul(x, y):
+    """x*y/R mod l."""
+    return mul(mul(x, y), from_int(_RINV_MONT, device=x.device))
+
+
+def to_mont(x):
+    """x*R mod l."""
+    return mul(x, from_int(_R_MONT, device=x.device))
+
+
+def from_mont(x):
+    """x/R mod l."""
+    return mul(x, from_int(_RINV_MONT, device=x.device))
+
+
+def exp_mod_bpo(x, e_bytes):
+    """x^E mod l for a per-lane exponent E of [..., n] little-endian bytes,
+    taken most significant first over all 8n bits."""
+    e = as_bytes(e_bytes, "e_bytes", None, x.device)
+    bits = (e.flip(-1).to(torch.int32)[..., None]
+            >> torch.arange(7, -1, -1, dtype=torch.int32, device=x.device)) & 1
+    bits = bits.reshape(bits.shape[:-2] + (-1,))           # [..., 8n]
+    return _square_and_multiply(from_int(1, x.shape[:-1], x.device), x,
+                                bits.unbind(-1))

@@ -9,7 +9,8 @@ bytes are packed to big-endian words first, then the 0x80 marker, the zero
 fill and the 128-bit length field are set per word with masks. A
 ``prefix`` (P bytes, P % 4 == 0, all live) is prepended in the word domain.
 The compression runs in ops/cuda/sha512_kernel.py: the CUDA kernel for a
-CUDA device, its plain version on the CPU.
+CUDA device, its plain version on the CPU. ``Sha512`` is the streaming
+Init/Update/Final facade for one long host-side stream.
 
 Words are int32 tensors that hold the bits of the big-endian uint32 words
 (torch has no uint32 arithmetic on the CPU).
@@ -26,7 +27,7 @@ from curve25519_tpu_torch.ops.cuda import (
 )
 
 __all__ = ["sha512", "sha512_plain", "sha512_bytes", "pack_words",
-           "nblocks_static", "DIGEST_LEN", "BLOCK_LEN"]
+           "nblocks_static", "Sha512", "DIGEST_LEN", "BLOCK_LEN"]
 
 DIGEST_LEN = 64
 BLOCK_LEN = 128
@@ -146,3 +147,71 @@ def sha512_bytes(data, device=None):
     arr = np.frombuffer(bytes(data), np.uint8).reshape(1, -1)
     out = sha512(arr, device=device)
     return bytes(out[0].cpu().tolist())
+
+
+class Sha512:
+    """Streaming SHA-512 (Init/Update/Final, the reference API shape) in
+    O(1) memory: between calls it holds the 8-word state, a tail of fewer
+    than 128 bytes and the exact byte count as a Python int, from which
+    final() builds the 128-bit length field, so any stream length works.
+
+    ``Sha512()`` runs on the port's host core (native/, built with g++ at
+    first use; a failed build raises). ``Sha512(device=...)`` runs the
+    whole blocks through the plain compression of ops/cuda/sha512_kernel on
+    that device, at most _CHUNK_BLOCKS blocks moved there at a time. The
+    host is the default, unlike the batched entry points, because one
+    stream is a serial chain of blocks: the batched kernel starts every lane
+    from the IV and cannot resume a state, and the plain compression costs
+    thousands of small launches per block on a card (each int64 operation
+    of the 80 rounds is one)."""
+
+    _CHUNK_BLOCKS = 512
+
+    def __init__(self, device=None):
+        self._total = 0
+        self._tail = bytearray()
+        if device is None:
+            from curve25519_tpu_torch.native import bindings
+            self._native = bindings.Sha512Stream()
+            self._state = None
+        else:
+            self._native = None
+            h0, _ = sha512_kernel._consts(pick_device(device=device))
+            self._state = h0.clone()                          # [8] int64
+
+    def update(self, data):
+        data = bytes(data)
+        self._total += len(data)
+        if self._native is not None:
+            self._native.update(data)
+            return self
+        self._tail += data
+        nfull = len(self._tail) // BLOCK_LEN * BLOCK_LEN
+        if nfull:
+            self._absorb(bytes(self._tail[:nfull]))
+            del self._tail[:nfull]
+        return self
+
+    def _absorb(self, block_bytes):
+        """Compress whole blocks into the state, one block after another."""
+        words = np.frombuffer(block_bytes, ">i8").astype(np.int64)
+        words = words.reshape(-1, 16)
+        st = list(self._state[:, None])                       # 8 x [1]
+        for ofs in range(0, words.shape[0], self._CHUNK_BLOCKS):
+            chunk = torch.from_numpy(words[ofs:ofs + self._CHUNK_BLOCKS]).to(
+                self._state.device)
+            for blk in chunk:
+                st = sha512_kernel._compress(st, list(blk[:, None]))
+        self._state = torch.cat(st)
+
+    def final(self) -> bytes:
+        if self._native is not None:
+            return self._native.final()
+        # FIPS 180-4 padding from the exact host-side length
+        fill = self._total % BLOCK_LEN
+        padlen = (112 - fill) if fill < 112 else (240 - fill)
+        self._absorb(bytes(self._tail) + b"\x80" + bytes(padlen - 1)
+                     + (self._total * 8).to_bytes(16, "big"))
+        self._tail.clear()
+        return b"".join((v & (2**64 - 1)).to_bytes(8, "big")
+                        for v in self._state.tolist())

@@ -1,1 +1,2 @@
-"""Interop and timing helpers of the PyTorch port."""
+"""Helpers of the PyTorch port: interop with the JAX package, ragged
+bucketing, checkpoints, the hardened RNG, profiling and hex dumps."""

@@ -96,6 +96,7 @@ def test_numpy_inputs_land_on_the_card(dev, rng):
     assert got.is_cuda and ladder_kernel.launches == before + 1
     assert torch.equal(got.cpu(), x25519.create_shared_key(peer, sk,
                                                            device="cpu"))
+    _check_oo_card_route_equals_host_core(rng)
 
 
 @pytest.mark.parametrize("nfolds", [8, 4])
@@ -268,3 +269,56 @@ def test_verify_paths_on_the_card(dev, rng):
     numpy_in = ed25519.verify(*(t.cpu().numpy() for t in (sig, pk, msg,
                                                            lengths)))
     assert numpy_in.is_cuda and torch.equal(numpy_in, want)
+    _check_ragged_sign_and_verify_on_the_card(dev, rng)
+
+
+def _check_ragged_sign_and_verify_on_the_card(dev, rng):
+    """sign_ragged across the fused and composed buckets against the oracle,
+    unchanged by blinding; verify_ragged launches Verify_Init once per
+    batch, and a rank-1 key takes the shared q_table."""
+    msgs = [rng.bytes(int(n)) for n in rng.integers(0, 1201, 40)]
+    # the last fused bucket (7 blocks, 879 bytes) and the first composed one
+    msgs[:3] = [b"", bytes(879), bytes(880)]
+    pk, priv = ed25519.create_keypair(on(dev, rng.integers(0, 256, (40, 32),
+                                                            dtype=np.uint8)))
+    sig = ed25519.sign_ragged(priv, msgs)
+    assert sig.is_cuda
+    for i in (0, 1, 2, 17):
+        assert bytes(sig[i].cpu().tolist()) == refmodel.ed_sign(
+            bytes(priv[i].cpu().tolist()), msgs[i]), i
+    ctx = blinding.blinding_init(b"ragged", device=dev)
+    assert torch.equal(ed25519.sign_ragged(priv, msgs, blinding=ctx), sig)
+    sig[5, 2] ^= 1
+    want = torch.ones(40, dtype=torch.bool, device=dev)
+    want[5] = False
+    before = dict(verify_kernel.launches)
+    assert torch.equal(ed25519.verify_ragged(sig, pk, msgs), want)
+    assert verify_kernel.launches["verify_init"] == before["verify_init"] + 1
+    assert torch.equal(ed25519.verify_ragged(
+        sig, None, msgs, ctx=ed25519.verify_init(pk)), want)
+    one = ed25519.sign_ragged(priv[0], msgs)
+    shared = verify_kernel.launches["poly_shared"]
+    assert bool(ed25519.verify_ragged(one, pk[0], msgs).all())
+    assert verify_kernel.launches["poly_shared"] > shared
+
+
+def _check_oo_card_route_equals_host_core(rng):
+    """The OO classes with no device (the card) give the host core's bytes
+    and verdicts."""
+    from curve25519_tpu_torch import oo
+    a_sk, b_sk, seed = rng.bytes(32), rng.bytes(32), rng.bytes(32)
+    b_pk = oo.X25519Private(b_sk, native=True).get_public_key()
+    card, host = oo.X25519Private(a_sk), oo.X25519Private(a_sk, native=True)
+    assert card.get_public_key() == host.get_public_key()
+    for kdf in (False, True):
+        assert card.create_shared_key(b_pk, kdf) == host.create_shared_key(
+            b_pk, kdf)
+    card, host = oo.ED25519Private(seed), oo.ED25519Private(seed,
+                                                             native=True)
+    assert card.get_public_key() == host.get_public_key()
+    pub = oo.ED25519Public(card.get_public_key())
+    for msg in (b"", rng.bytes(1000)):
+        sig = card.sign(msg)
+        assert sig == host.sign(msg)
+        assert pub.verify(sig, msg)
+        assert not pub.verify(sig[:-1] + bytes([sig[-1] ^ 1]), msg)

@@ -6,8 +6,11 @@ fused keygen and sign kernels (ops/cuda/sign_kernel.py), and messages over
 943 bytes the same composition; the JAX side runs its own CPU route,
 jitted once per module. The g++ build of the kernels' lane code
 (csrc/sign.cu) is held against the plain versions. refmodel and the RFC 8032
-vectors carry the broad coverage. Inputs come from a seeded numpy
-generator. Tolerance: exact bytes (and exact limbs for the contexts).
+vectors carry the broad coverage. Ragged batches (sign_ragged) go through
+the JAX package's bucketing code with the port's sign per bucket. The
+custom tool's blinder source is held against the JAX tool's. Inputs come
+from a seeded numpy generator. Tolerance: exact bytes (and exact limbs for
+the contexts).
 """
 
 import functools
@@ -23,11 +26,15 @@ from curve25519_tpu import _custom_blind as jcb
 from curve25519_tpu import refmodel
 from curve25519_tpu.models import blinding as jblinding
 from curve25519_tpu.models import ed25519 as jed25519
+from curve25519_tpu.tools import custom_tool as jtool
+from curve25519_tpu.utils import bucketing as jbucketing
 
 from curve25519_tpu_torch import _custom_blind as tcb
+from curve25519_tpu_torch.config import ELL
 from curve25519_tpu_torch.models import blinding, ed25519, tables, x25519
 from curve25519_tpu_torch.ops import sha512
 from curve25519_tpu_torch.ops.cuda import build, edwards_kernel, sign_kernel
+from curve25519_tpu_torch.tools import custom_tool
 from curve25519_tpu_torch.utils import interop
 from curve25519_tpu_torch.utils.interop import to_numpy
 
@@ -87,9 +94,31 @@ def oracle_sigs(priv, msg, lengths):
             for p, m, n in zip(priv, msg, lengths)]
 
 
-def test_static_blinder_constants_equal_jax():
+def test_static_blinder_constants_equal_jax(monkeypatch, tmp_path, capsys):
     for name in ("BL", "ZR_BYTES", "BP_X", "BP_Y"):
         assert getattr(tcb, name) == getattr(jcb, name), name
+    _check_custom_tool(monkeypatch, tmp_path, capsys)
+
+
+def _check_custom_tool(monkeypatch, tmp_path, capsys):
+    """The blinder source that the tool writes equals the JAX tool's once
+    the package names are the same; `t` passes on the CPU; `b` writes a
+    module whose BP is -BL*G."""
+    seed = np.random.default_rng(54).bytes(64)
+    src = custom_tool.create_blinding_source(seed, device="cpu")
+    assert src.replace("curve25519_tpu_torch", "curve25519_tpu") == \
+        jtool.create_blinding_source(seed)
+    assert custom_tool.cmd_testvector(b"seed", b"message", device="cpu") == 0
+    assert "verified[native-sign] = True" in capsys.readouterr().out
+    assert custom_tool.main([]) == 2
+    out = tmp_path / "_custom_blind.py"          # never the package's file
+    monkeypatch.setattr(custom_tool, "_BLIND_PATH", out)
+    custom_tool.cmd_blind(device="cpu")
+    ns = {}
+    exec(out.read_text(), ns)
+    assert refmodel.base_mult((ELL - ns["BL"]) % ELL) == (ns["BP_X"],
+                                                          ns["BP_Y"])
+    assert len(ns["ZR_BYTES"]) == 32
 
 
 def test_blinding_init_equals_jax():
@@ -154,9 +183,14 @@ def test_rfc8032_vectors_with_numpy_inputs_on_the_cpu():
         # non-tensor input, no device, no card: raise, never run on the CPU
         with pytest.raises(RuntimeError):
             ed25519.create_keypair(sks)
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            ed25519.sign_ragged(np.zeros(64, np.uint8), [b"ab"])
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            ed25519.verify_ragged(np.zeros(64, np.uint8),
+                                  np.zeros(32, np.uint8), [b"ab"])
 
 
-def test_sign_routes_match_the_oracle(rng):
+def test_sign_routes_match_the_oracle(rng, monkeypatch):
     sk = rng.integers(0, 256, (4, 32), dtype=np.uint8)
     _, priv = ed25519.create_keypair(from_numpy(sk))
     p = to_numpy(priv)
@@ -176,6 +210,41 @@ def test_sign_routes_match_the_oracle(rng):
     bcast = ed25519.sign(priv[0], from_numpy(short[:2]))
     assert rows(bcast) == oracle_sigs(np.stack([p[0], p[0]]), short[:2],
                                       [64, 64])
+    _check_sign_ragged(priv, rng, monkeypatch)
+
+
+def _check_sign_ragged(priv, rng, monkeypatch):
+    """sign_ragged of 4 messages in 2 buckets equals the oracle, the padded
+    batch of the same rows, and the JAX package's sign_ragged and
+    apply_bucketed driving the port's sign per bucket, with per-lane keys
+    and with one key for all; a blinding context changes nothing."""
+    p = to_numpy(priv)
+    msgs = [rng.bytes(n) for n in (200, 5, 111, 150)]   # buckets 2, 1, 1, 2
+    sig = ed25519.sign_ragged(priv, msgs)
+    assert rows(sig) == [refmodel.ed_sign(p[i].tobytes(), m)
+                         for i, m in enumerate(msgs)]
+    padded = np.zeros((4, 200), np.uint8)
+    for i, m in enumerate(msgs):
+        padded[i, :len(m)] = np.frombuffer(m, np.uint8)
+    lens = np.array([len(m) for m in msgs], np.int32)
+    assert torch.equal(sig, ed25519.sign(priv, from_numpy(padded),
+                                         from_numpy(lens)))
+    ctx = blinding.blinding_init(b"ragged", device="cpu")
+    assert torch.equal(ed25519.sign_ragged(priv, msgs, blinding=ctx), sig)
+
+    def port_sign(m, l, pr):
+        return to_numpy(ed25519.sign(*(from_numpy(np.ascontiguousarray(a))
+                                       for a in (pr, m, l))))
+
+    np.testing.assert_array_equal(
+        jbucketing.apply_bucketed(port_sign, msgs, p), to_numpy(sig))
+    # the JAX sign_ragged (its broadcast and buckets), the port's sign inside
+    monkeypatch.setattr(jed25519, "_sign_jit", port_sign)
+    np.testing.assert_array_equal(np.asarray(jed25519.sign_ragged(p, msgs)),
+                                  to_numpy(sig))
+    np.testing.assert_array_equal(
+        np.asarray(jed25519.sign_ragged(p[0], msgs)),
+        to_numpy(ed25519.sign_ragged(priv[0], msgs)))
 
 
 def test_blinding_leaves_every_output_unchanged(rng):

@@ -3,7 +3,8 @@
 The same numpy inputs (seeded) go through curve25519_tpu.ops.fe / codec
 (jitted once at module level) and curve25519_tpu_torch.ops.fe / codec on the
 CPU. Tolerance: exact. Both sides use the same radix, so limbs must be equal,
-not just equal mod p.
+not just equal mod p. The hex dumps of utils/debug equal the JAX package's
+strings for bytes, numpy arrays and tensors.
 """
 
 import functools
@@ -18,11 +19,12 @@ import jax.numpy as jnp
 from curve25519_tpu import config as jconfig
 from curve25519_tpu.ops import codec as jcodec
 from curve25519_tpu.ops import fe as jfe
+from curve25519_tpu.utils import debug as jdebug
 
 from curve25519_tpu_torch import config as tconfig
 from curve25519_tpu_torch.ops import codec as tcodec
 from curve25519_tpu_torch.ops import fe as tfe
-from curve25519_tpu_torch.utils import interop
+from curve25519_tpu_torch.utils import debug, interop
 from curve25519_tpu_torch.utils.interop import to_numpy
 
 # the carriers default to the card: these tests ask for the CPU
@@ -208,3 +210,23 @@ def test_interop_keeps_dtype_and_values(rng):
     if not torch.cuda.is_available():     # the default device is the card
         with pytest.raises(RuntimeError):
             interop.from_numpy(enc)
+    _check_debug_strings_equal_jax(rng)
+
+
+def _check_debug_strings_equal_jax(rng):
+    b = rng.integers(0, 256, (2, 32), dtype=np.uint8)
+    words = rng.integers(0, 2**32, (2, 4), dtype=np.uint64).astype(np.uint32)
+    limbs = rng.integers(-5, 8192, (3, 20)).astype(np.int32)
+    for name in (None, "x"):
+        for port_fn, jax_fn, arrays in (
+                (debug.hex_bytes, jdebug.hex_bytes, (b, b[0])),
+                (debug.hex_words, jdebug.hex_words, (words, words[1])),
+                (debug.hex_fe, jdebug.hex_fe, (limbs, limbs[0]))):
+            for a in arrays:
+                want = jax_fn(a, name)
+                assert port_fn(a, name) == want
+                assert port_fn(torch.from_numpy(a.astype(
+                    np.int64 if a.dtype == np.uint32 else a.dtype)),
+                    name) == want
+    assert debug.hex_bytes(bytes(b[0])) == jdebug.hex_bytes(bytes(b[0]))
+    assert debug.hex_bytes(b"\x01\x02", "k") == "k = 0x0201"

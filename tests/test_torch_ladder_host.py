@@ -11,9 +11,18 @@ code is held, exactly, against:
   limb;
 - the plain ladder (models/montgomery.point_multiply) and the Python oracle
   (curve25519_tpu.refmodel), byte for byte.
+
+The port's host core (curve25519_tpu_torch/native, a byte-equal copy of the
+JAX package's ref25519.cpp built with g++) is held against the JAX
+package's build of the same source through both packages' bindings.
 """
 
+import fcntl
+import functools
+import hashlib
 import shutil
+import tempfile
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,13 +40,31 @@ from curve25519_tpu.ops.pallas import sc_tile as sct
 from curve25519_tpu_torch.config import int_to_limbs
 from curve25519_tpu_torch.models import montgomery
 from curve25519_tpu_torch.ops import codec, fe
+from curve25519_tpu_torch.native import bindings
+from curve25519_tpu_torch.oo import X25519Private
 from curve25519_tpu_torch.ops.cuda import build
+from curve25519_tpu_torch.ops.sha512 import Sha512
 
 # the FeOp enum of ladder.cu
 OPS = {"add": 0, "sub": 1, "neg": 2, "mul": 3, "sqr": 4, "mul_small_add": 5,
        "canon": 6, "inv": 7, "to_bytes": 8, "from_bytes": 9}
 
 EDGE_U = [0, 1, P, P + 1, 2**255 - 1, 1 | 1 << 255]
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@functools.lru_cache(maxsize=None)
+def jax_host_core():
+    """The JAX package's host core (curve25519_tpu.native.bindings), built
+    once under a lock: its build writes the library in place, so two test
+    processes must not race."""
+    from curve25519_tpu.native import bindings as jbindings
+    lock = Path(tempfile.gettempdir()) / "curve25519_tpu_native.lock"
+    with open(lock, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        jbindings.load()
+    return jbindings
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -150,9 +177,47 @@ def test_host_ladder_equals_plain(lib, rng):
     want = montgomery.point_multiply(torch.from_numpy(u), torch.from_numpy(k))
     np.testing.assert_array_equal(got, want.numpy())
     assert not got[0].any()
+    # the host core's ladder (native/ref25519.cpp) on the same lanes
+    assert [bindings.x25519(bytes(a), bytes(b)) for a, b in zip(k, u)] == [
+        bytes(r) for r in got]
+    _check_host_core_equals_jax(rng)
 
 
-def test_host_ladder_edge_u_and_zr_match_oracle(lib, rng):
+def _check_host_core_equals_jax(rng):
+    """The port's copy of ref25519.cpp is the JAX package's, byte for byte,
+    and its bindings give the JAX bindings' bytes on every entry."""
+    assert (REPO / "curve25519_tpu_torch/native/ref25519.cpp").read_bytes() \
+        == (REPO / "curve25519_tpu/native/ref25519.cpp").read_bytes()
+    jnative = jax_host_core()
+    for n in (0, 1, 64, 200):
+        sk, peer = rng.bytes(32), rng.bytes(32)
+        msg = rng.bytes(n)
+        assert bindings.x25519(sk, peer) == jnative.x25519(sk, peer)
+        assert bindings.x25519_base(sk) == jnative.x25519_base(sk) == \
+            bindings.x25519_base_fast(sk) == jnative.x25519_base_fast(sk)
+        pk, priv = bindings.ed25519_keypair(sk)
+        assert (pk, priv) == jnative.ed25519_keypair(sk) == \
+            bindings.ed25519_keypair_fast(sk)
+        sig = bindings.ed25519_sign(priv, msg)
+        assert sig == jnative.ed25519_sign(priv, msg) == \
+            bindings.ed25519_sign_fast(priv, msg)
+        assert bindings.ed25519_verify(sig, pk, msg)
+        bad = bytes([sig[0] ^ 1]) + sig[1:]
+        assert bindings.ed25519_verify(bad, pk, msg) == \
+            jnative.ed25519_verify(bad, pk, msg) is False
+        assert bindings.sha512(msg) == jnative.sha512(msg) == \
+            hashlib.sha512(msg).digest()
+        s, js = bindings.Sha512Stream(), jnative.Sha512Stream()
+        for part in (msg[:n // 3], msg[n // 3:]):
+            s.update(part)
+            js.update(part)
+        assert s.final() == js.final()
+    with pytest.raises(ValueError):
+        bindings.x25519(sk[:31], peer)
+
+
+def test_host_ladder_edge_u_and_zr_match_oracle(lib, rng, monkeypatch,
+                                                tmp_path):
     n = len(EDGE_U)
     u = np.stack([np.frombuffer(v.to_bytes(32, "little"), np.uint8)
                   for v in EDGE_U])
@@ -164,3 +229,19 @@ def test_host_ladder_edge_u_and_zr_match_oracle(lib, rng):
     for row, v in zip(got, EDGE_U):
         assert row.tobytes() == refmodel.x25519(b"\x07" * 32,
                                                 v.to_bytes(32, "little"))
+    _check_host_core_build_failure_raises(monkeypatch, tmp_path)
+
+
+def _check_host_core_build_failure_raises(monkeypatch, tmp_path):
+    """No fallback: without g++ the host core and every route on it raise."""
+    monkeypatch.setattr(bindings, "_SO", tmp_path / "lib.so")
+    monkeypatch.setattr(bindings.shutil, "which", lambda name: None)
+    bindings.load.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+            Sha512()
+        with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+            X25519Private(b"\1" * 32, native=True)
+    finally:
+        monkeypatch.undo()
+        bindings.load.cache_clear()

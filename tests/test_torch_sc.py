@@ -3,8 +3,11 @@ package's, limb for limb, and the g++ build of the kernels' mod-l code
 (csrc/sc25519.cuh) against the port's plain ops/sc.py.
 
 Both packages use 20 limbs of 13 bits and the same integer steps, so limbs
-must be equal, not only equal mod l. Inputs come from a seeded numpy
-generator plus the boundary values of tests/test_sc.py. Tolerance: exact.
+must be equal, not only equal mod l. The selftest ops (inv, the Montgomery
+forms and exp_mod_bpo) run on 4 lanes on both sides (the JAX ones eagerly,
+inv and exp_mod_bpo each compile one scan) and against Python integers.
+Inputs come from a seeded numpy generator plus the boundary values of
+tests/test_sc.py. Tolerance: exact.
 """
 
 import functools
@@ -117,6 +120,38 @@ def test_sc_results_are_canonical_and_right(rng):
     assert [limbs_to_int(r) for r in got] == [
         (a * b + c) % ELL for a, b, c in zip(xs, ys, zs)]
     assert got.min() >= 0 and got.max() < 2**13
+    _check_selftest_ops_equal_jax_and_integers(rng)
+
+
+def _check_selftest_ops_equal_jax_and_integers(rng):
+    vals = [int.from_bytes(rng.bytes(32), "little") % ELL, 1, ELL - 1,
+            int.from_bytes(rng.bytes(32), "little") % ELL]
+    x = torch.stack([sc.from_int(v) for v in vals])
+    e = rng.integers(0, 256, (4, 32), dtype=np.uint8)
+    e[1] = 0                                        # x^0 = 1
+    jx = jnp.asarray(x.numpy())
+    rinv = pow(2**256, ELL - 2, ELL)
+    cases = {
+        "inv": (sc.inv(x), jsc.inv(jx), [pow(v, ELL - 2, ELL) for v in vals]),
+        "to_mont": (sc.to_mont(x), jsc.to_mont(jx),
+                    [v * 2**256 % ELL for v in vals]),
+        "from_mont": (sc.from_mont(x), jsc.from_mont(jx),
+                      [v * rinv % ELL for v in vals]),
+        "mont_mul": (sc.mont_mul(x, sc.to_mont(x)), jsc.mont_mul(
+            jx, jsc.to_mont(jx)), [v * v % ELL for v in vals]),
+        "exp_mod_bpo": (sc.exp_mod_bpo(x, torch.from_numpy(e)),
+                        jsc.exp_mod_bpo(jx, jnp.asarray(e)),
+                        [pow(v, int.from_bytes(row.tobytes(), "little"), ELL)
+                         for v, row in zip(vals, e)]),
+    }
+    for name, (got, want, ints) in cases.items():
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                      err_msg=name)
+        assert [limbs_to_int(r) for r in got.tolist()] == ints, name
+        assert torch.equal(sc.to_bytes(got), torch.from_numpy(np.array(
+            jsc.to_bytes(want)))), name
+    assert [limbs_to_int(r) for r in sc.mul(cases["inv"][0], x).tolist()] \
+        == [1, 1, 1, 1]
 
 
 @pytest.mark.parametrize("form", ["bits", "bytes", "limbs"])

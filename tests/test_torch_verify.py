@@ -13,7 +13,14 @@ in one jitted function (jitting verify_init as well costs ~90 s more of XLA
 compile on a CPU; eager verify_check costs more than its compile). Strict
 and table-free verdicts are held against the frozen expectations of the
 vectors, to which tests/test_edge_encodings.py holds the JAX package.
-Tolerance: exact bytes, limbs and verdicts.
+
+Ragged batches (verify_ragged) are held against the Python oracle, and the
+JAX package's verify_ragged, with its verify_init and jitted check swapped
+for the port's, must route every bucket as the port does: verify_init once
+per batch or never with a ctx, the shared q_table for one key. The JAX
+package's own sign_ragged and verify_ragged, compiled, are held against the
+port's in the slow tier. Verify contexts cross between the packages through
+utils/checkpoint both ways. Tolerance: exact bytes, limbs and verdicts.
 """
 
 import functools
@@ -30,11 +37,12 @@ from curve25519_tpu import refmodel
 from curve25519_tpu.models import ed25519 as jed25519
 from curve25519_tpu.models import tables as jtables
 from curve25519_tpu.ops import fe as jfe
+from curve25519_tpu.utils import checkpoint as jcheckpoint
 
 from curve25519_tpu_torch.models import ed25519, edwards, tables
 from curve25519_tpu_torch.ops import fe, fold, sc
 from curve25519_tpu_torch.ops.cuda import build, edwards_kernel, verify_kernel
-from curve25519_tpu_torch.utils import interop
+from curve25519_tpu_torch.utils import checkpoint, interop
 from curve25519_tpu_torch.utils.interop import to_numpy
 
 from test_edge_encodings import MSG, VECTORS
@@ -223,17 +231,57 @@ def test_verdicts_equal_jax_and_frozen(batch, jax_ref, strict):
         assert not bad, (label, bad)
 
 
-def test_verify_ctx_from_jax_gives_jax_verdicts(batch, jax_ref):
+def test_verify_ctx_from_jax_gives_jax_verdicts(batch, jax_ref, tmp_path):
     pk, sig, msg, n, want, _ = batch
     ctx = verify_ctx_from_jax({k: jax_ref[k] for k in ("pk", "planes", "ok")})
     assert ctx["planes"].dtype == torch.int8 and ctx["ok"].dtype == torch.bool
     got = ed25519.verify_check(ctx, t(sig), t(msg), t(n))
     np.testing.assert_array_equal(to_numpy(got), jax_ref["verdict"])
+    _check_checkpoint_crosses_between_packages(ctx, batch, jax_ref, tmp_path)
     ed25519.verify_finish(ctx)
     assert list(ctx) == ["pk"]
 
 
-def test_rank1_and_broadcast_calls(batch):
+def _check_checkpoint_crosses_between_packages(ctx, batch, jax_ref,
+                                               tmp_path):
+    """A verify ctx saved by either package loads in the other, byte for
+    byte, and gives the same verdicts; both files hold the same entries."""
+    _, sig, msg, n, _, _ = batch
+    as_np = {k: to_numpy(v) for k, v in ctx.items()}
+    # the port saves ("_" keys are not saved), the JAX package loads (numpy)
+    checkpoint.save_verify_ctx(tmp_path / "port", dict(ctx, _host_only=7))
+    got = jcheckpoint.load_pytree(tmp_path / "port", to_jax=False)
+    assert sorted(got) == ["ok", "pk", "planes"]
+    for k in got:
+        assert got[k].dtype == as_np[k].dtype and got[k].tobytes() == \
+            as_np[k].tobytes(), k
+    # the JAX package saves, the port loads, on the device asked for
+    jcheckpoint.save_pytree(str(tmp_path / "jax"), dict(as_np, _host_only=7))
+    back = checkpoint.load_verify_ctx(tmp_path / "jax", device="cpu")
+    for k in ("pk", "planes", "ok"):
+        assert torch.equal(back[k], ctx[k]), k
+    np.testing.assert_array_equal(to_numpy(ed25519.verify_check(
+        back, t(sig), t(msg), t(n))), jax_ref["verdict"])
+    with np.load(tmp_path / "port.npz") as a, np.load(tmp_path /
+                                                      "jax.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].tobytes() == b[k].tobytes(), k
+    # any tree of lists, tuples and dicts; numpy on request
+    tree = {"b": [torch.arange(3, dtype=torch.int32), (torch.ones(
+        2, dtype=torch.bool),)], "a": torch.zeros(1, dtype=torch.uint8)}
+    checkpoint.save_pytree(tmp_path / "tree.npz", tree)
+    back = checkpoint.load_pytree(tmp_path / "tree.npz", device="cpu")
+    assert isinstance(back["b"], list) and isinstance(back["b"][1], tuple)
+    assert torch.equal(back["b"][0], tree["b"][0])
+    assert isinstance(checkpoint.load_pytree(tmp_path / "tree",
+                                             to_torch=False)["a"], np.ndarray)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            checkpoint.load_verify_ctx(tmp_path / "jax")
+
+
+def test_rank1_and_broadcast_calls(batch, monkeypatch):
     pk, sig, msg, n, want, _ = (t(a) for a in batch)
     i = N_EDGE                                   # the port's valid signature
     assert bool(ed25519.verify(sig[i], pk[i], msg[i], n[i]))
@@ -249,6 +297,101 @@ def test_rank1_and_broadcast_calls(batch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             ed25519.verify(to_numpy(sig[i]), to_numpy(pk[i]), to_numpy(msg[i]))
+    _check_verify_ragged_routes_as_jax(monkeypatch)
+
+
+def ragged_case():
+    """(pk [4, 32], priv [4, 64], 4 messages in 2 buckets) on the CPU."""
+    rng = np.random.default_rng(44)
+    pk, priv = ed25519.create_keypair(from_numpy(rng.integers(
+        0, 256, (4, 32), dtype=np.uint8)))
+    return pk, priv, [rng.bytes(n) for n in (200, 5, 111, 150)]
+
+
+def _check_verify_ragged_routes_as_jax(monkeypatch):
+    """verify_ragged with per-lane keys, a per-lane ctx, one rank-1 key and
+    an unbatched ctx: the oracle's verdicts, and the same routing as the
+    JAX package's verify_ragged run with the port's verify_init and check
+    (verify_init once or never; per-lane or shared q_tables per bucket)."""
+    pk, priv, msgs = ragged_case()
+    sig = ed25519.sign_ragged(priv, msgs)
+    sig[1, 3] ^= 1                                  # R
+    sig[3, 40] ^= 1                                 # S
+    sig1 = ed25519.sign_ragged(priv[0], msgs)
+    sig1[2, 63] ^= 1
+    want = [refmodel.ed_verify(bytes(to_numpy(s)), bytes(to_numpy(k)), m)
+            for s, k, m in zip(sig, pk, msgs)]
+    assert want == [True, False, True, False]
+
+    port_log, jax_log = [], []
+    real_init, real_poly = ed25519.verify_init, verify_kernel.poly_mult
+    monkeypatch.setattr(ed25519, "verify_init", lambda *a, **k: (
+        port_log.append("init") or real_init(*a, **k)))
+    monkeypatch.setattr(verify_kernel, "poly_mult", lambda u, v, planes: (
+        port_log.append(planes.ndim) or real_poly(u, v, planes)))
+
+    def jax_init(pk):
+        jax_log.append("init")
+        return {k: to_numpy(v) for k, v in real_init(t(pk)).items()}
+
+    def jax_check(m, l, s, planes, ok, pkb, strict):
+        jax_log.append(np.ndim(planes))
+        return to_numpy(ed25519.verify_check(
+            {"pk": t(pkb), "planes": t(planes), "ok": t(ok)}, t(s), t(m),
+            t(l), strict=strict))
+
+    monkeypatch.setattr(jed25519, "verify_init", jax_init)
+    monkeypatch.setattr(jed25519, "_vcheck_jit", jax_check)
+    ctx, ctx1 = real_init(pk), real_init(pk[0])
+    for s, k, c, verdicts, route in (
+            (sig, pk, None, want, ["init", 3, 3]),
+            (sig, None, ctx, want, [3, 3]),
+            (sig1, pk[0], None, [True, True, False, True], ["init", 2, 2]),
+            (sig1, None, ctx1, [True, True, False, True], [2, 2])):
+        port_log.clear()
+        got = ed25519.verify_ragged(s, k, msgs, ctx=c)
+        assert (got.tolist(), port_log) == (verdicts, route)
+        jax_log.clear()
+        jgot = jed25519.verify_ragged(
+            to_numpy(s), None if k is None else to_numpy(k), msgs,
+            ctx=None if c is None else {n: to_numpy(v) for n, v in c.items()})
+        assert (np.asarray(jgot).tolist(), jax_log) == (verdicts, route)
+
+
+@pytest.mark.slow
+def test_ragged_equals_jax_sign_and_verify_ragged(monkeypatch):
+    """The JAX package's own sign_ragged and verify_ragged, compiled on the
+    CPU, against the port's on 2 messages in one bucket: per-lane keys
+    (verify_init counted), a per-lane ctx, and one rank-1 key (the shared
+    q_table). In the slow tier, as tests/conftest.py keeps every big XLA
+    compile: sign, verify_init and both checks compile for minutes."""
+    pk, priv, msgs = ragged_case()
+    msgs = msgs[::3]                                # 200 and 150 bytes
+    pk, priv = pk[::3], priv[::3]
+    sig = ed25519.sign_ragged(priv, msgs)
+    np.testing.assert_array_equal(
+        np.asarray(jed25519.sign_ragged(to_numpy(priv), msgs)),
+        to_numpy(sig))
+    sig[1, 40] ^= 1
+    inits = []
+    real_init = jed25519.verify_init
+    monkeypatch.setattr(jed25519, "verify_init", lambda *a: (
+        inits.append(1) or real_init(*a)))
+    got = ed25519.verify_ragged(sig, pk, msgs)
+    assert got.tolist() == [True, False]
+    jctx = {k: jnp.asarray(to_numpy(v)) for k, v in
+            ed25519.verify_init(pk).items()}
+    for k, c in ((to_numpy(pk), None), (None, jctx)):
+        np.testing.assert_array_equal(np.asarray(jed25519.verify_ragged(
+            to_numpy(sig), k, msgs, ctx=c)), to_numpy(got))
+    assert len(inits) == 1                          # none with a ctx
+    sig1 = ed25519.sign_ragged(priv[0], msgs)
+    np.testing.assert_array_equal(
+        np.asarray(jed25519.sign_ragged(to_numpy(priv[0]), msgs)),
+        to_numpy(sig1))
+    np.testing.assert_array_equal(np.asarray(jed25519.verify_ragged(
+        to_numpy(sig1), to_numpy(pk[0]), msgs)), to_numpy(
+            ed25519.verify_ragged(sig1, pk[0], msgs)))
 
 
 def test_host_kernels_equal_plain(lib, batch, digits):

@@ -6,9 +6,16 @@ through a module-level jax.jit wrapper (an eager JAX ladder costs 10-30 s).
 Inputs come from a seeded numpy generator and go to both packages. Tolerance:
 exact bytes. The kernel itself is held against the plain version on the
 card by tests/test_torch_cuda.py.
+
+The OO wrapper (oo.py) on both of its routes (the batched API with
+device="cpu", and the port's host core with native=True) gives the bytes of
+the JAX package's classes on their host core (native=True, no XLA). The
+launch counters' Counter, timed and trace of utils/profiling are held
+against the JAX package's JSON and against a CPU op.
 """
 
 import functools
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -19,15 +26,20 @@ import torch
 
 import jax
 
+from curve25519_tpu import oo as joo
 from curve25519_tpu import refmodel
 from curve25519_tpu.config import P
 from curve25519_tpu.models import x25519 as jx25519
+from curve25519_tpu.utils import profiling as jprofiling
 
+from curve25519_tpu_torch import oo
 from curve25519_tpu_torch.config import int_to_limbs
 from curve25519_tpu_torch.models import montgomery, x25519
 from curve25519_tpu_torch.ops.cuda import ladder_kernel
-from curve25519_tpu_torch.utils import interop
+from curve25519_tpu_torch.utils import interop, profiling
 from curve25519_tpu_torch.utils.interop import to_numpy
+
+from test_torch_ladder_host import jax_host_core
 
 # the carriers default to the card: these tests ask for the CPU
 from_numpy = functools.partial(interop.from_numpy, device="cpu")
@@ -106,6 +118,36 @@ def test_slice_equals_jax(rng):
     bcast = x25519.create_shared_key(from_numpy(peer[0]), from_numpy(sk_b))
     want = np.asarray(_jax_shared(np.broadcast_to(peer[0], peer.shape), sk_b))
     np.testing.assert_array_equal(to_numpy(bcast), want)
+    for route in ({"device": "cpu"}, {"native": True}):
+        _check_oo_equals_jax_host_core(rng, route)
+
+
+def _check_oo_equals_jax_host_core(rng, route):
+    """Keys, shared secrets with and without the KDF, signatures and
+    verdicts (valid and tampered) of the port's classes on `route`, against
+    the JAX package's classes on their host core."""
+    jax_host_core()
+    a_sk, b_sk, ed_sk = rng.bytes(32), rng.bytes(32), rng.bytes(32)
+    a, ja = oo.X25519Private(a_sk, **route), joo.X25519Private(a_sk,
+                                                              native=True)
+    b_pk = joo.X25519Private(b_sk, native=True).get_public_key()
+    assert a.get_public_key() == ja.get_public_key()
+    for kdf in (False, True):
+        assert a.create_shared_key(b_pk, kdf=kdf) == ja.create_shared_key(
+            b_pk, kdf=kdf), (route, kdf)
+    k, jk = oo.ED25519Private(ed_sk, **route), joo.ED25519Private(
+        ed_sk, native=True)
+    assert k.get_public_key() == jk.get_public_key()
+    pub = oo.ED25519Public(k.get_public_key(), **route)
+    jpub = joo.ED25519Public(jk.get_public_key(), native=True)
+    for msg in (b"", rng.bytes(70)):
+        sig = k.sign(msg)
+        assert sig == jk.sign(msg)
+        assert pub.verify(sig, msg)
+        bad = sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
+        assert not pub.verify(bad, msg) and not jpub.verify(bad, msg)
+    if "device" in route:
+        assert pub._ctx is not None               # built once and kept
 
 
 def test_rfc7748_vectors():
@@ -159,12 +201,49 @@ def test_inputs_are_not_modified_and_bad_inputs_raise(rng):
         x25519.create_shared_key(peer, sk, zr=torch.ones(2, 20))
 
 
-def test_cpu_tensors_take_the_plain_version_without_launching(rng):
+def test_cpu_tensors_take_the_plain_version_without_launching(
+        rng, monkeypatch, tmp_path):
     before = ladder_kernel.launches
     sk, peer = from_numpy(rand_bytes(rng, 2)), from_numpy(rand_bytes(rng, 2))
     got = ladder_kernel.point_multiply_cuda(peer, sk)
     assert ladder_kernel.launches == before
     assert torch.equal(got, montgomery.point_multiply(peer, sk))
+    _check_trace_and_counters(tmp_path, monkeypatch)
+
+
+def _check_trace_and_counters(tmp_path, monkeypatch):
+    """trace_summary finds a traced CPU op, most expensive first, with no
+    device events on the CPU; Counter and timed print the JAX package's
+    JSON for the same ops and seconds."""
+    x = torch.ones(64, 64)
+    with profiling.trace(str(tmp_path)) as logdir:
+        torch.mm(x, x)
+    assert logdir == str(tmp_path)
+    summary = profiling.trace_summary(logdir)
+    assert summary["aten::mm"]["count"] == 1
+    assert summary["aten::mm"]["total_us"] > 0
+    totals = [v["total_us"] for v in summary.values()]
+    assert totals == sorted(totals, reverse=True)
+    assert list(profiling.trace_summary(logdir, prefix="aten::mm")) == [
+        "aten::mm"]
+    assert profiling.trace_device_events(logdir) == {}
+    with pytest.raises(FileNotFoundError):
+        profiling.trace_summary(logdir + "/empty")
+
+    ticks = iter([10.0, 12.5, 10.0, 12.5])
+    monkeypatch.setattr("time.perf_counter", lambda: next(ticks))
+    port, ref = profiling.Counter("x25519"), jprofiling.Counter("x25519")
+    with profiling.timed(port, 1000):
+        pass
+    with jprofiling.timed(ref, 1000):
+        pass
+    for base in (None, 300.0):
+        assert port.json(base) == ref.json(base)
+    assert json.loads(port.json(300.0)) == {
+        "metric": "x25519", "value": 400.0, "unit": "ops/s",
+        "vs_baseline": 1.333}
+    assert profiling.Counter("idle").json() == jprofiling.Counter(
+        "idle").json()
 
 
 def test_numpy_inputs_follow_the_device_rule(rng):
@@ -180,6 +259,10 @@ def test_numpy_inputs_follow_the_device_rule(rng):
         # no device given and no card: raise, never a silent CPU run
         with pytest.raises(RuntimeError):
             x25519.create_shared_key(peer, sk)
+        # and so do the OO classes, unless they are asked for the host core
+        for cls in (oo.X25519Private, oo.ED25519Private, oo.ED25519Public):
+            with pytest.raises(RuntimeError, match="no CUDA card"):
+                cls(b"\2" * 32)
 
 
 def test_port_imports_no_jax():
@@ -188,7 +271,9 @@ def test_port_imports_no_jax():
         "models.tables", "models.edwards", "models.blinding",
         "models.ed25519", "models.x25519", "ops.cuda.sha512_kernel",
         "ops.cuda.edwards_kernel", "ops.cuda.sign_kernel",
-        "ops.cuda.verify_kernel", "utils.interop", "utils.profiling")]
+        "ops.cuda.verify_kernel", "utils.interop", "utils.profiling",
+        "native.bindings", "utils.rng", "utils.bucketing", "utils.checkpoint",
+        "utils.debug", "oo", "tools.custom_tool")]
     code = (
         "import importlib, sys\n"
         "import torch\n"
@@ -200,6 +285,8 @@ def test_port_imports_no_jax():
         "assert bytes(x25519.create_shared_key(u, k).tolist()).hex() == '%s'\n"
         "pk, priv = ed25519.create_keypair(k)\n"
         "assert bool(ed25519.verify(ed25519.sign(priv, u), pk, u))\n"
+        "sig = ed25519.sign_ragged(priv, [b'', bytes(200)])\n"
+        "assert ed25519.verify_ragged(sig, pk, [b'', bytes(200)]).all()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'curve25519_tpu']\n"
         "assert not bad, bad\n" % (modules, V1_K, V1_U, V1_OUT))
