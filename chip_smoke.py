@@ -65,7 +65,18 @@ nothing of JAX or of the JAX package. Phases, each printing a line:
    streaming Sha512 on the host core (64 MiB) and on the card, against
    hashlib; sc.inv, to_mont / mont_mul / from_mont and exp_mod_bpo at 4,096
    lanes against Python integers; a verify context of 16,384 keys saved and
-   loaded; and the custom tool's test vector (`t`) on the card.
+   loaded; and the custom tool's test vector (`t`) on the card;
+13. the multi-device path (parallel/mesh.py): mixed_throughput_step over
+   make_pod_mesh() in this process, with a real NCCL process group at the
+   world size of one process, at 262,144 lanes of 64-byte messages, driven
+   with the launch counts set to 0 just before it and read just after
+   (per shard: 4 ladder, 1 keygen, 1 sign, 1 SHA-512, 1 one-shot verify);
+   both counters must be 2B and shared_a the bytes of create_shared_key
+   run outside the mesh; the warm step timed against the same seven calls
+   made without the mesh, and profiled; then two worker processes sharing the card in a
+   gloo group (tests/torch_mp_worker.py, 2 x 4,096 lanes), whose shards
+   must be the single-process bytes; then the three examples/torch_*.py as
+   subprocesses, each of which must exit 0.
 
 It prints the run's wall time, a JSON line of the kernels, the card line,
 then, as its last line, {"ok": true, "device": {...}}. Any failed check
@@ -73,7 +84,9 @@ exits non-zero before that.
 """
 
 import hashlib
+import importlib.util
 import json
+import socket
 import statistics
 import subprocess
 import sys
@@ -97,6 +110,11 @@ RAGGED_MAX = 1200
 CTX_KEYS = 16_384             # phase 12: the saved verify context
 SC_LANES = 4096               # phase 12: the mod-l selftest ops
 OO_CALLS = 50                 # phase 12: calls per single-op latency
+MP_LANES = 2 * 4096           # phase 13: lanes of the two gloo ranks
+SUBPROCESS_TIMEOUT = 300      # phase 13: seconds for a worker or an example
+# phase 13: the examples and their arguments
+EXAMPLES = (("torch_dh_exchange.py",), ("torch_streaming_and_ragged.py",),
+            ("torch_throughput_server.py", "3"))
 PALLAS = "curve25519_tpu/ops/pallas/"
 # kernel -> (source, the TPU kernel body it replaces, its entry functions in
 # ptxas's report)
@@ -1654,6 +1672,159 @@ def phase_host_and_selftest(dev, rng):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the multi-device path (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_processes(cmds):
+    """Run the commands side by side from the repo root; returns each one's
+    (exit code, output). Fails if one has not ended after
+    SUBPROCESS_TIMEOUT seconds; every process is ended on the way out."""
+    root = Path(__file__).resolve().parent
+    procs = [subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    try:
+        outs = [p.communicate(timeout=SUBPROCESS_TIMEOUT)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        fail("%s did not end within %d s" % (cmds, SUBPROCESS_TIMEOUT))
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def phase_mesh(dev, rng, card, counts, batch=MAIN_BATCH):
+    import torch.distributed as dist
+    from curve25519_tpu_torch.models import ed25519, x25519
+    from curve25519_tpu_torch.parallel import mesh as pmesh
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:%d"
+                            % free_port(), world_size=1, rank=0,
+                            timeout=pmesh.TIMEOUT)
+    try:
+        m = pmesh.make_pod_mesh()
+        check(dist.get_backend(m.group) == "nccl" and m.size == 1,
+              "the pod mesh is %s" % (m,))
+        sk_a, sk_b, msgs = (rand_bytes(rng, (batch, w), dev)
+                            for w in (32, 32, 64))
+        step = pmesh.mixed_throughput_step(m)
+        args = [pmesh.shard_batch(x, m) for x in (sk_a, sk_b, msgs)]
+        (ok, ops, shared), wall, got = counts.drive(step, *args)
+        per_shard = {"x25519_ladder_kernel": 4, "keygen_kernel": 1,
+                     "sign_kernel": 1, "sha512_kernel": 1,
+                     "oneshot_kernel": 1}
+        want = {k: per_shard.get(k, 0) * m.size for k in got}
+        check(got == want, "the mesh step launched %s, expected %s"
+              % (got, want))
+        check(ok.device == dev and ok.dtype == torch.int64,
+              "the counters are %s on %s" % (ok.dtype, ok.device))
+        check(int(ok) == int(ops) == 2 * batch,
+              "ok %d, ops %d, expected %d" % (int(ok), int(ops), 2 * batch))
+        ref = x25519.create_shared_key(x25519.calculate_public_key(sk_b),
+                                       sk_a)
+        check(torch.equal(torch.cat(shared), ref),
+              "shared_a differs from create_shared_key outside the mesh")
+        print("phase 13 mesh step: NCCL, world size 1 (%d card(s) seen), "
+              "B = %d, 64-byte messages, %.3f s wall, launches %s; ok = "
+              "ops = %d; shared_a == create_shared_key outside the mesh"
+              % (torch.cuda.device_count(), batch, wall,
+                 {k: v for k, v in got.items() if v}, 2 * batch))
+
+        def direct():
+            """The step's seven calls on the whole batch, no mesh."""
+            a_pk = x25519.calculate_public_key(sk_a)
+            b_pk = x25519.calculate_public_key(sk_b)
+            s_ab = x25519.create_shared_key(b_pk, sk_a)
+            s_ba = x25519.create_shared_key(a_pk, sk_b)
+            pk, priv = ed25519.create_keypair(sk_a)
+            sig_ok = ed25519.verify(ed25519.sign(priv, msgs), pk, msgs)
+            return (s_ab == s_ba).all(-1).sum() + sig_ok.sum()
+
+        def host_s(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        calls = {"mesh": lambda: step(*args), "direct": direct}
+        times = {"mesh": [], "direct": []}
+        for order in (("mesh", "direct"), ("direct", "mesh")) * 2:
+            for name in order:
+                times[name].append(host_s(calls[name]))
+        step_s, direct_s = min(times["mesh"]), min(times["direct"])
+        print("phase 13 mesh timing [%s]: B = %d, step %.3f ms (%.1f "
+              "protocol ops/s, best of 4 warm, host wall) | the seven calls "
+              "without the mesh %.3f ms | step / calls %.4f"
+              % (card, batch, step_s * 1e3, 2 * batch / step_s,
+                 direct_s * 1e3, step_s / direct_s))
+        print("phase 13 profile [%s]: mesh step B=%d, 3 calls: %s"
+              % (card, batch, profile(step, *args)))
+    finally:
+        dist.destroy_process_group()
+    phase_mesh_processes(dev)
+    phase_examples()
+
+
+def phase_mesh_processes(dev, lanes=MP_LANES):
+    """Two gloo ranks on one card through tests/torch_mp_worker.py."""
+    from curve25519_tpu_torch.models import x25519
+
+    root = Path(__file__).resolve().parent
+    worker = root / "tests" / "torch_mp_worker.py"
+    spec = importlib.util.spec_from_file_location("torch_mp_worker", worker)
+    mp_worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mp_worker)
+    port = free_port()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        results = run_processes([
+            [sys.executable, str(worker), str(pid), "2", str(port), "1",
+             "--device", "cuda", "--lanes", str(lanes), "--msg-len", "64",
+             "--out", out] for pid in range(2)])
+        wall = time.perf_counter() - t0
+        ok_line = "TORCH_MP_OK ok=%d ops=%d procs=2 devs=2" % (2 * lanes,
+                                                               2 * lanes)
+        for pid, (rc, text) in enumerate(results):
+            check(rc == 0 and ok_line in text, "worker %d exited %d:\n%s"
+                  % (pid, rc, text[-3000:]))
+        shards = [np.load(Path(out) / ("shared_%d.npy" % i))
+                  for i in range(2)]
+    sk_a, sk_b, _ = (torch.from_numpy(x).to(dev)
+                     for x in mp_worker.inputs(lanes, 64))
+    ref = x25519.create_shared_key(x25519.calculate_public_key(sk_b),
+                                   sk_a).cpu().numpy()
+    half = lanes // 2
+    for i, shard in enumerate(shards):
+        check(np.array_equal(shard, ref[i * half:(i + 1) * half]),
+              "gloo rank %d's shard differs from the single-process bytes"
+              % i)
+    print("phase 13 two gloo ranks on one card: B = %d, %s on each rank, "
+          "each shard == the single-process bytes, %.1f s wall"
+          % (lanes, ok_line, wall))
+
+
+def phase_examples():
+    root = Path(__file__).resolve().parent
+    for name, *args in EXAMPLES:
+        t0 = time.perf_counter()
+        [(rc, text)] = run_processes(
+            [[sys.executable, str(root / "examples" / name), *args]])
+        check(rc == 0, "examples/%s exited %d:\n%s" % (name, rc,
+                                                        text[-3000:]))
+        print("phase 13 example %s: exit 0 in %.1f s | %s"
+              % (name, time.perf_counter() - t0,
+                 text.strip().splitlines()[-1]))
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1680,6 +1851,7 @@ def main():
     phase_verify_known_answers(dev, rng)
     rows.update(phase_verify_main(dev, rng, card, counts))
     phase_api(dev, rng, card, counts)
+    phase_mesh(dev, rng, card, counts)
     check("jax" not in sys.modules and "curve25519_tpu" not in sys.modules,
           "the port imported jax or the JAX package")
 

@@ -11,13 +11,20 @@ loaded with ctypes).
   library its build seconds and, per kernel, ptxas's registers, spills and
   stack; the compiler output is kept in ``_build/<name>.log``.
 - ``build_host(out_dir)`` compiles all sources with g++ into one library
-  whose ``*_host`` entries run the per-lane kernel code on the CPU; the CPU
-  tests load it with ``load_host``.
+  whose ``*_host`` entries run the per-lane kernel code on the CPU (unless
+  it is newer than every source); the CPU tests load it with
+  ``load_host``. The compiler output is kept in ``libport_host.log``.
 
-Nothing is compiled at import time.
+Each build holds an exclusive lock on ``lock`` in its output directory
+from the stale check to the last read of its log, so processes that share
+a checkout (the ranks of a multi-process run) build a library once and
+load that build, and none reads a log that another is writing. Nothing is
+compiled at import time.
 """
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import os
 import re
@@ -90,6 +97,17 @@ def _stale(lib):
     return not lib.exists() or lib.stat().st_mtime < newest
 
 
+@contextlib.contextmanager
+def _build_lock(directory):
+    """Hold an exclusive flock on directory/lock (made if missing) for the
+    block; the kernel drops it if the process dies."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    with open(directory / "lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+
+
 def _parse_ptxas(log, kernels):
     """Per kernel of `kernels`: registers per thread and spill and stack
     bytes from nvcc's -Xptxas -v report (one chunk per entry function)."""
@@ -117,8 +135,12 @@ def build_cuda(names=None):
     """Compile the named libraries (default: all) for sm_90a into _build/,
     one nvcc process per source, all at once. Returns {"wall_seconds": s,
     name: {"build_seconds": s, "kernels": {kernel: ptxas info}}}."""
+    with _build_lock(BUILD_DIR):
+        return _build_cuda(names)
+
+
+def _build_cuda(names):
     names = list(LIBRARIES) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     running = {}
@@ -154,8 +176,9 @@ def build_cuda(names=None):
 def load_cuda(name):
     """Load (building if missing or stale) one CUDA library; returns the
     ctypes CDLL with its argument types declared."""
-    if _stale(_so(name)):
-        build_cuda([name])
+    with _build_lock(BUILD_DIR):
+        if _stale(_so(name)):
+            _build_cuda([name])
     lib = ctypes.CDLL(str(_so(name)))
     for fn, argtypes in LIBRARIES[name][1].items():
         getattr(lib, fn).argtypes = argtypes
@@ -178,15 +201,27 @@ def launch(name, fn, device, *args):
 
 
 def build_host(out_dir):
-    """Compile all kernel sources with g++ into out_dir; returns the path of
-    the shared library."""
+    """Compile all kernel sources with g++ into out_dir, unless its library
+    is newer than every source; returns the path of the shared library.
+    A failed build raises with the compiler's output."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found")
     so = Path(out_dir) / "libport_host.so"
-    sources = [str(CSRC / (name + ".cu")) for name in LIBRARIES]
-    subprocess.run([gxx, *GXX_FLAGS, "-o", str(so), *sources],
-                   check=True, capture_output=True)
+    with _build_lock(out_dir):
+        if not _stale(so):
+            return so
+        tmp = so.with_suffix(".so.tmp%d" % os.getpid())
+        sources = [str(CSRC / (name + ".cu")) for name in LIBRARIES]
+        log = so.with_suffix(".log")
+        with open(log, "w") as f:
+            proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp),
+                                   *sources], stdout=f,
+                                  stderr=subprocess.STDOUT)
+        if proc.returncode != 0:
+            raise RuntimeError("g++ failed (%d):\n%s"
+                               % (proc.returncode, log.read_text()))
+        os.replace(tmp, so)
     return so
 
 

@@ -34,6 +34,7 @@ from curve25519_tpu_torch.config import ELL
 from curve25519_tpu_torch.models import blinding, ed25519, tables, x25519
 from curve25519_tpu_torch.ops import sha512
 from curve25519_tpu_torch.ops.cuda import build, edwards_kernel, sign_kernel
+from curve25519_tpu_torch.parallel import mesh as pmesh
 from curve25519_tpu_torch.tools import custom_tool
 from curve25519_tpu_torch.utils import interop
 from curve25519_tpu_torch.utils.interop import to_numpy
@@ -165,6 +166,22 @@ def test_sign_equals_jax(rng):
         np.testing.assert_array_equal(to_numpy(got), want)
     assert rows(got)[2] == refmodel.ed_sign(to_numpy(priv)[2].tobytes(),
                                             msg[2].tobytes())
+    _check_mesh_sign(priv, msg, lengths, want)
+
+
+def _check_mesh_sign(priv, msg, lengths, want):
+    """sharded(sign) over two CPU devices on 4 lanes of fused lengths (the
+    two such lanes above, twice): each device signs its shard, and the
+    shards in mesh order are the JAX package's signatures (the port's
+    counterpart of test_sharded_wrapper_matches_single_device)."""
+    lanes = [0, 1, 0, 1]
+    m = pmesh.make_mesh(["cpu", "cpu"])
+    args = [pmesh.shard_batch(x, m) for x in (
+        to_numpy(priv)[lanes], msg[lanes, :943], lengths[lanes])]
+    assert sign_kernel.max_fused_msg_len(943)
+    sig = pmesh.sharded(ed25519.sign, m)(*args)
+    assert [s.shape for s in sig] == [(2, 64)] * 2
+    np.testing.assert_array_equal(to_numpy(torch.cat(sig)), want[lanes])
 
 
 def test_rfc8032_vectors_with_numpy_inputs_on_the_cpu():

@@ -15,12 +15,18 @@ code is held, exactly, against:
 The port's host core (curve25519_tpu_torch/native, a byte-equal copy of the
 JAX package's ref25519.cpp built with g++) is held against the JAX
 package's build of the same source through both packages' bindings.
+Processes that build the host library into one directory at once share
+build.py's lock: one compiles, all load its library, and each gets the
+compiler's error text whole.
 """
 
 import fcntl
 import functools
 import hashlib
+import json
 import shutil
+import subprocess
+import sys
 import tempfile
 from pathlib import Path
 
@@ -151,11 +157,71 @@ def test_field_ops_equal_twin_and_fe_tile(lib, rng, names):
                                       err_msg=name)
 
 
-def test_inv_equals_twin_and_fe_tile(lib, rng):
+def test_inv_equals_twin_and_fe_tile(lib, rng, tmp_path):
     x = weak_limbs(rng, 4)
     got = host_op(lib, "inv", x)
     np.testing.assert_array_equal(got, fe.inv(torch.from_numpy(x)).numpy())
     np.testing.assert_array_equal(got, untile(ft.t_inv(tile(x))))
+    _check_concurrent_host_builds(tmp_path)
+
+
+# builds the host library into argv[1] with argv[2:] added to g++'s flags;
+# prints {"ino", "mtime_ns", "pk"} (pk: the ladder of key 0..31 from u = 9)
+# or {"error": the RuntimeError's text}
+_BUILD_CHILD = """
+import json, os, sys
+import numpy as np
+from curve25519_tpu_torch.ops.cuda import build
+build.GXX_FLAGS = build.GXX_FLAGS + sys.argv[2:]
+try:
+    so = build.build_host(sys.argv[1])
+except RuntimeError as e:
+    print(json.dumps({"error": str(e)}))
+    sys.exit(0)
+lib = build.load_host(so)
+k = np.arange(32, dtype=np.uint8)
+k[0] &= 248
+k[31] = (k[31] & 127) | 64
+u = np.zeros(32, np.uint8)
+u[0] = 9
+out = np.zeros(32, np.uint8)
+lib.x25519_ladder_host(out.ctypes.data, u.ctypes.data, k.ctypes.data,
+                       None, 1)
+st = os.stat(so)
+print(json.dumps({"ino": st.st_ino, "mtime_ns": st.st_mtime_ns,
+                  "pk": out.tobytes().hex()}))
+"""
+
+
+def _check_concurrent_host_builds(tmp_path):
+    """Four processes start at once: two build the host library into one
+    fresh directory, two more a build that g++ refuses into another. The
+    first two load one build (the same file) and its ladder gives the
+    oracle's bytes; the other two each raise with g++'s whole error text,
+    which is what the log holds."""
+    bogus = "-fno-such-option-for-the-lock-check"
+    runs = [(tmp_path / "good", [])] * 2 + [(tmp_path / "bad", [bogus])] * 2
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_CHILD, str(d),
+                               *flags], cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for d, flags in runs]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    assert all(p.returncode == 0 for p in procs), outs
+    res = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    pk = refmodel.x25519(bytes(range(32)), bytes([9]) + bytes(31)).hex()
+    assert [r["pk"] for r in res[:2]] == [pk, pk]
+    assert res[0]["ino"] == res[1]["ino"]
+    assert res[0]["mtime_ns"] == res[1]["mtime_ns"]      # built once
+    log = (tmp_path / "bad" / "libport_host.log").read_text()
+    assert log.count(bogus) == 1, log
+    for r in res[2:]:
+        assert r["error"].startswith("g++ failed"), r
+        assert r["error"].split(":\n", 1)[1] == log
 
 
 def test_from_bytes_equals_twin_and_sc_tile(lib, rng):

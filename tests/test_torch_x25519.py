@@ -12,10 +12,16 @@ device="cpu", and the port's host core with native=True) gives the bytes of
 the JAX package's classes on their host core (native=True, no XLA). The
 launch counters' Counter, timed and trace of utils/profiling are held
 against the JAX package's JSON and against a CPU op.
+
+The mesh (parallel/mesh.py) is held against the same JAX bytes: sharded
+calculate_public_key over four CPU devices, and the mixed step of two
+gloo processes of two CPU devices each (tests/torch_mp_worker.py, the
+counterpart of tests/test_multiprocess.py).
 """
 
 import functools
 import json
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -36,10 +42,12 @@ from curve25519_tpu_torch import oo
 from curve25519_tpu_torch.config import int_to_limbs
 from curve25519_tpu_torch.models import montgomery, x25519
 from curve25519_tpu_torch.ops.cuda import ladder_kernel
+from curve25519_tpu_torch.parallel import mesh as pmesh
 from curve25519_tpu_torch.utils import interop, profiling
 from curve25519_tpu_torch.utils.interop import to_numpy
 
 from test_torch_ladder_host import jax_host_core
+from torch_mp_worker import inputs as mp_inputs
 
 # the carriers default to the card: these tests ask for the CPU
 from_numpy = functools.partial(interop.from_numpy, device="cpu")
@@ -94,9 +102,10 @@ def rand_bytes(rng, n):
     return rng.integers(0, 256, (n, 32), dtype=np.uint8)
 
 
-def test_slice_equals_jax(rng):
+def test_slice_equals_jax(rng, tmp_path):
     """calculate_public_key and create_shared_key on one batch, plus rank-1
-    and broadcast calls, against the JAX functions' bytes."""
+    and broadcast calls, against the JAX functions' bytes; the same through
+    the mesh."""
     sk_a, sk_b, peer = (rand_bytes(rng, BATCH) for _ in range(3))
     base = np.zeros((BATCH, 32), np.uint8)
     base[:, 0] = 9
@@ -120,6 +129,79 @@ def test_slice_equals_jax(rng):
     np.testing.assert_array_equal(to_numpy(bcast), want)
     for route in ({"device": "cpu"}, {"native": True}):
         _check_oo_equals_jax_host_core(rng, route)
+    _check_mesh_sharded_equals_jax(sk_a, pk_a_j)
+    _check_two_process_gloo_step(base, tmp_path)
+
+
+def _check_mesh_sharded_equals_jax(sk, pk_j):
+    """shard_batch and sharded(calculate_public_key) over four CPU devices:
+    the shards in mesh order are the JAX bytes. An indivisible batch raises,
+    replicate copies to every device, and make_pod_mesh without a process
+    group is a mesh of this process alone."""
+    m = pmesh.make_mesh(["cpu"] * 4)
+    assert (m.size, m.num_processes, m.rank, m.group) == (4, 1, 0, None)
+    shards = pmesh.shard_batch(sk, m)
+    assert [s.shape for s in shards] == [(BATCH // 4, 32)] * 4
+    pk = pmesh.sharded(x25519.calculate_public_key, m)(shards)
+    np.testing.assert_array_equal(to_numpy(torch.cat(pk)), pk_j)
+    with pytest.raises(ValueError, match="does not split"):
+        pmesh.shard_batch(sk[:BATCH - 1], m)
+    with pytest.raises(ValueError, match="one shard per device"):
+        pmesh.sharded(x25519.calculate_public_key, m)(shards[:3])
+    copies = pmesh.replicate(from_numpy(sk[0]), m)
+    assert len(copies) == 4
+    assert all(torch.equal(c, from_numpy(sk[0])) for c in copies)
+    assert len({c.data_ptr() for c in copies}) == 4
+    pod = pmesh.make_pod_mesh(devices=["cpu", "cpu"])
+    assert (pod.size, pod.num_processes, pod.group) == (2, 1, None)
+    if not torch.cuda.is_available():
+        # no devices named and no card: raise, never a CPU mesh
+        for make in (pmesh.make_mesh, pmesh.make_pod_mesh):
+            with pytest.raises(RuntimeError, match="no CUDA card"):
+                make()
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            pmesh.init_distributed("127.0.0.1:1", 2, 0, backend="nccl")
+    with pytest.raises(ValueError, match="NCCL"):
+        pmesh.init_distributed("127.0.0.1:1", 2, 0, backend="nccl",
+                               device="cpu")
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _check_two_process_gloo_step(base, out):
+    """Two processes of two CPU devices each join over gloo
+    (init_distributed, make_pod_mesh) and run mixed_throughput_step on 8
+    global lanes: both all_reduced counters are 16 on each rank, and the
+    shared_a shards, put together, are the JAX create_shared_key(
+    calculate_public_key(sk_b), sk_a) bytes."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "tests" / "torch_mp_worker.py"),
+         str(pid), "2", str(port), "2", "--out", str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    joined = "\n---\n".join(outs)
+    assert all(p.returncode == 0 for p in procs), joined
+    assert all("TORCH_MP_OK ok=16 ops=16 procs=2 devs=4" in o
+               for o in outs), joined
+    got = np.concatenate([np.load(out / ("shared_%d.npy" % i))
+                          for i in range(4)])
+    # the JAX ladder at BATCH lanes (its one compile): 8 lanes, zero-padded
+    sk_a, sk_b, _ = mp_inputs(8, 16)
+    pad = np.zeros((BATCH - 8, 32), np.uint8)
+    pk_b = np.asarray(_jax_shared(base, np.concatenate([sk_b, pad])))
+    want = np.asarray(_jax_shared(pk_b, np.concatenate([sk_a, pad])))[:8]
+    np.testing.assert_array_equal(got, want)
 
 
 def _check_oo_equals_jax_host_core(rng, route):
@@ -273,7 +355,7 @@ def test_port_imports_no_jax():
         "ops.cuda.edwards_kernel", "ops.cuda.sign_kernel",
         "ops.cuda.verify_kernel", "utils.interop", "utils.profiling",
         "native.bindings", "utils.rng", "utils.bucketing", "utils.checkpoint",
-        "utils.debug", "oo", "tools.custom_tool")]
+        "utils.debug", "oo", "tools.custom_tool", "parallel.mesh")]
     code = (
         "import importlib, sys\n"
         "import torch\n"
