@@ -10,7 +10,10 @@ nothing of JAX or of the JAX package. Phases, each printing a line:
 1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
 2. the nvcc build of every CUDA kernel from csrc/ (one nvcc process per
    source, all at once), with build seconds, registers per thread and spill
-   and stack bytes per kernel;
+   and stack bytes per kernel; then the card's mul.wide.u32 and
+   fma.rn.f64 rates, measured by microkernels built beside them, at which
+   every kernel's bound counts its field products (each timing prints its
+   share of the bound, and a share over 100% fails the run);
 3. the X25519 ladder kernel against its plain PyTorch version on the card,
    byte for byte: random lanes, the RFC 7748 edge u values, an all-zero peer,
    a nonzero zr, ragged batches, rank-1 and broadcast calls;
@@ -92,6 +95,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -462,94 +466,303 @@ class Counts:
 
 
 # ---------------------------------------------------------------------------
-# Bounds: the least time the card could take for the work of one call.
-# Per lane the kernels issue int32 multiply-adds (IMAD, on the FMA pipe) for
-# the limb products and plain int32 logic, shift and add operations (on the
-# ALU pipe) for the SHA-512 rounds. Counted from the algorithm and
-# calibrated on the ladder's SASS (a field multiply is 422 IMAD with its
-# reduction, a squaring 232, a small-constant multiply 22): each pipe
-# issues 64 lanes per clock per SM. A constant-time gather of a table entry
-# is counted as what the card needs at least for it: the exact int8 one-hot
-# product [lanes x entries] x [entries x 120 bytes] at the tensor cores'
-# int8 rate (1,979 TOP/s dense). The carries, moves and loads are not
-# counted, so the bound is below the true least time. Bytes: each input
-# read once and each output written once at 3.35 TB/s.
+# Bounds: the least time the card could take for the work of one call, the
+# larger of its bytes (each input read once, each output written once, at
+# 3.35 TB/s) and its operations, each kind at its pipe's rate:
+# - The field and scalar work, counted as the exact products that each
+#   operation needs on either of the card's two exact multipliers, whatever
+#   radix a kernel uses inside; phase 2 measures both rates on this card:
+#   - the integer pipe, 32x32->64 products (mul.wide.u32) on 32-bit words,
+#     with one Karatsuba level: a multiply mod p is 3 x 16 products of 4-word
+#     halves plus 9 for the fold of its high half by 2^256 = 38 (mod p), the
+#     eight high words and the fold's carry word; a squaring 3 x 10 + 9; a
+#     multiply by a small constant 8 + 1. The sums' carry bits cost masked
+#     adds, not products. A second level would save 12 more products, about
+#     0.4 clocks per SM at the products' 31 per clock, and add some 60-80
+#     word adds, about a clock at the ALU pipe's 64.
+#   - the FP64 pipe (fma.rn.f64), whose product of two balanced limbs of
+#     radix 2^25.5 is exact: ten limbs is the fewest that keep a column of
+#     products inside 53 bits. A multiply is 10 x 10 products plus 9 for
+#     the fold by 2^255 = 19; a squaring 55 + 9; a small constant 10 + 1.
+#     Karatsuba does not pay there: one level saves 25 products and adds 37
+#     additions on the same pipe.
+#   A mod-l multiply is a multiply plus the reduction of its 512 bits by
+#   l = 2^252 + d (d < 2^125): the top 260 bits times d, then the top 133
+#   bits, then the top word, (9 + 5 + 1) x 4 integer or (10 + 6 + 1) x 5
+#   FP64 products; from_digest's reduction is that alone. The two pipes run
+#   at once, and each operation may go to either: the field time is the
+#   least over all such splits.
+# - SHA-512's int32 logic, shift and add operations (3,968 per block) on
+#   the ALU pipe, 64 per clock per SM at the card's maximum SM clock.
+# - A constant-time gather of a table entry as the exact int8 one-hot
+#   product [lanes x entries] x [entries x 120 bytes] at the tensor cores'
+#   int8 rate (1,979 TOP/s dense).
+# Not counted: additions, carries, moves, loads and issue slots, so the
+# bound is below the least time on these pipes. Products on the FP32 pipe or
+# the tensor cores are not counted either: the bound is the least on the
+# integer and FP64 multipliers only.
 # ---------------------------------------------------------------------------
-IMAD_MUL, IMAD_SQR, IMAD_SMALL = 422, 232, 22
-IMAD_SC_MUL = 400 + 399 + 20 + 10       # products, FOLD_SC, 2^260, delta
-IMAD_SC_REDUCE = 399 + 20 + 10           # from_digest's reduce40
+PRODUCTS = {            # (32x32->64 integer, FP64) products per operation
+    "mul": (3 * 16 + 9, 10 * 10 + 9),
+    "sqr": (3 * 10 + 9, 55 + 9),
+    "small": (8 + 1, 10 + 1),
+    "sc_reduce": ((9 + 5 + 1) * 4, (10 + 6 + 1) * 5),
+    "sc_mul": (3 * 16 + (9 + 5 + 1) * 4, 10 * 10 + (10 + 6 + 1) * 5),
+}
+INV = Counter(sqr=254, mul=11)           # the 254 S + 11 M inversion chain
 SHA_BLOCK_ALU = 80 * 32 + 64 * 22        # 64-bit rounds and schedule
 ENTRY_BYTES = 120                        # 60 limbs, a low and a high byte
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 
+# The rate microkernels: CHAINS independent chains per thread, UNROLL x
+# CHAINS products per trip of the loop, 256 threads a block. mul.wide.u32's
+# next multiplicand is the xor of a product's two words (one ALU op), so
+# that both are live: the compiler narrows a product whose high word is
+# never read to a 32-bit IMAD. fma.rn.f64 takes x to x / 2 + 1/2, which
+# stays in [1, 2).
+RATE_CHAINS, RATE_UNROLL, RATE_ITERS = 8, 8, 16384
+RATE_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
 
-def _inv_imad():
-    return 254 * IMAD_SQR + 11 * IMAD_MUL
+__global__ void __launch_bounds__(256)
+mulwide_rate_kernel(uint64_t* out, uint32_t b, int iters) {
+  const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
+  uint64_t acc[%(chains)d];
+#pragma unroll
+  for (int c = 0; c < %(chains)d; c++)
+    acc[c] = (t * 0x9E3779B9u) | 1u | c << 1;        // odd: never 0
+  for (int it = 0; it < iters; it++) {
+#pragma unroll
+    for (int u = 0; u < %(unroll)d; u++) {
+#pragma unroll
+      for (int c = 0; c < %(chains)d; c++)
+        asm volatile("mul.wide.u32 %%0, %%1, %%2;" : "=l"(acc[c])
+                     : "r"((uint32_t)acc[c] ^ (uint32_t)(acc[c] >> 32)),
+                       "r"(b));
+    }
+  }
+  uint64_t s = 0;
+#pragma unroll
+  for (int c = 0; c < %(chains)d; c++) s ^= acc[c];
+  out[t] = s;
+}
+
+__global__ void __launch_bounds__(256)
+dfma_rate_kernel(double* out, double b, int iters) {
+  const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
+  double acc[%(chains)d];
+#pragma unroll
+  for (int c = 0; c < %(chains)d; c++) acc[c] = 1.0 + 1e-9 * (t + c);
+  for (int it = 0; it < iters; it++) {
+#pragma unroll
+    for (int u = 0; u < %(unroll)d; u++) {
+#pragma unroll
+      for (int c = 0; c < %(chains)d; c++)
+        asm volatile("fma.rn.f64 %%0, %%0, %%1, %%1;" : "+d"(acc[c])
+                     : "d"(b));
+    }
+  }
+  double s = 0;
+#pragma unroll
+  for (int c = 0; c < %(chains)d; c++) s += acc[c];
+  out[t] = s;
+}
+
+extern "C" int mulwide_rate_launch(void* out, uint32_t b, int iters,
+                                   int blocks, void* stream) {
+  mulwide_rate_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      (uint64_t*)out, b, iters);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dfma_rate_launch(void* out, double b, int iters, int blocks,
+                                void* stream) {
+  dfma_rate_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      (double*)out, b, iters);
+  return (int)cudaGetLastError();
+}
+""" % {"chains": RATE_CHAINS, "unroll": RATE_UNROLL}
 
 
 def basemult_ops(nfolds, use_bp=False):
-    """(IMAD, ALU, tensor-core int8 operations) per lane of one base
-    multiply with its epilogue (any mode: one inversion and two
+    """(field operations, ALU, tensor-core int8 operations) per lane of one
+    base multiply with its epilogue (any mode: one inversion and two
     multiplies)."""
     steps = 256 // nfolds - 1
-    muls = 4 + steps * 11 + (8 if use_bp else 0) + 2
-    sqrs = steps * 4
     gathers = steps + 1
-    onehot = gathers * 2 * (1 << nfolds) * ENTRY_BYTES   # multiply-adds
-    return muls * IMAD_MUL + sqrs * IMAD_SQR + _inv_imad(), 0, onehot
+    field = Counter(mul=4 + steps * 11 + (8 if use_bp else 0) + 2,
+                    sqr=steps * 4) + INV
+    return field, 0, gathers * 2 * (1 << nfolds) * ENTRY_BYTES
 
 
 def ladder_ops():
-    step = 5 * IMAD_MUL + 4 * IMAD_SQR + IMAD_SMALL
-    start = 3 * IMAD_MUL + 2 * IMAD_SQR + IMAD_SMALL
-    return 254 * step + start + _inv_imad(), 0, 0
+    """254 steps of 5 M + 4 S + 1 small, the start 3 M + 2 S + 1 small, the
+    inversion."""
+    return Counter(mul=254 * 5 + 3, sqr=254 * 4 + 2, small=255) + INV, 0, 0
 
 
 def keygen_ops(use_bl=False):
-    imad, alu, onehot = basemult_ops(8, use_bp=use_bl)
-    if use_bl:
-        imad += 10 + 10                   # the mod and add of a + bl
-    return imad, alu + SHA_BLOCK_ALU, onehot
+    field, alu, onehot = basemult_ops(8, use_bp=use_bl)
+    return field, alu + SHA_BLOCK_ALU, onehot
 
 
 def sign_ops(blocks, use_bl=False):
     """blocks: SHA-512 blocks of the two message hashes (data-dependent)."""
-    imad, alu, onehot = basemult_ops(8, use_bp=use_bl)
-    imad += 2 * IMAD_SC_REDUCE + IMAD_SC_MUL + 20
-    return imad, alu + (1 + blocks) * SHA_BLOCK_ALU, onehot
+    field, alu, onehot = basemult_ops(8, use_bp=use_bl)
+    return (field + Counter(sc_reduce=2, sc_mul=1),
+            alu + (1 + blocks) * SHA_BLOCK_ALU, onehot)
 
 
 def verify_init_ops():
     """Decompression (sqrt ratio and x*y: 20 M, 256 S), 192 doublings, 15
     PE conversions and 11 PE adds."""
-    muls = 20 + 192 * 4 + 15 + 11 * 8
-    sqrs = 256 + 192 * 4
-    return muls * IMAD_MUL + sqrs * IMAD_SQR, 0, 0
+    return Counter(mul=20 + 192 * 4 + 15 + 11 * 8, sqr=256 + 192 * 4), 0, 0
 
 
 def poly_ops():
     """63 doublings, 63 PE adds, 32 PA adds (table entries read by index),
     the start's and the epilogue's multiplies and one inversion."""
-    muls = 63 * 4 + 63 * 8 + 32 * 7 + 3
-    sqrs = 63 * 4
-    return muls * IMAD_MUL + sqrs * IMAD_SQR + _inv_imad(), 0, 0
+    return Counter(mul=63 * 4 + 63 * 8 + 32 * 7 + 3, sqr=63 * 4) + INV, 0, 0
 
 
 def oneshot_ops():
-    return tuple(a + b for a, b in zip(verify_init_ops(), poly_ops()))
+    (f1, a1, o1), (f2, a2, o2) = verify_init_ops(), poly_ops()
+    return f1 + f2, a1 + a2, o1 + o2
 
 
-def bound_ms(lanes_ops, nbytes):
-    """lanes_ops: summed (IMAD, ALU, tensor-core int8 operations) over the
-    call's lanes."""
-    props = torch.cuda.get_device_properties(0)
-    rate = props.multi_processor_count * 64 * max_sm_clock_hz()
-    imad, alu, onehot = lanes_ops
-    t_ops = max(imad / rate, alu / rate, onehot / INT8_OPS_PER_S)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+class Bound:
+    """The bound model at this card's rates: mulwide_per_s and dfma_per_s,
+    the products per second that phase 2 measured on the two multipliers;
+    the ALU pipe at 64 per clock per SM at the maximum SM clock."""
+
+    def __init__(self, mulwide_per_s, dfma_per_s):
+        self.mulwide_per_s, self.dfma_per_s = mulwide_per_s, dfma_per_s
+        props = torch.cuda.get_device_properties(0)
+        self.alu_per_s = props.multi_processor_count * 64 * max_sm_clock_hz()
+
+    def field_s(self, field):
+        """The least seconds of the field work (operation -> count) with both
+        multipliers at once and each operation on either. For a time t, the
+        integer pipe takes the operations that save the most FP64 products
+        per integer product first (the best fractional fill); bisection
+        finds the least t whose remainder fits the FP64 pipe."""
+        kinds = sorted(field, key=lambda k: PRODUCTS[k][1] / PRODUCTS[k][0],
+                       reverse=True)
+
+        def fits(t):
+            room, fp64 = self.mulwide_per_s * t, 0.0
+            for k in kinds:
+                on_int = min(field[k], room / PRODUCTS[k][0])
+                room -= on_int * PRODUCTS[k][0]
+                fp64 += (field[k] - on_int) * PRODUCTS[k][1]
+            return fp64 <= self.dfma_per_s * t
+
+        lo, hi = 0.0, sum(n * PRODUCTS[k][0]
+                          for k, n in field.items()) / self.mulwide_per_s
+        for _ in range(60):
+            mid = (lo + hi) / 2
+            lo, hi = (lo, mid) if fits(mid) else (mid, hi)
+        return hi
+
+    def ms(self, ops, lanes, nbytes):
+        """(bound ms, "operations" or "bytes") of a call of `lanes` lanes;
+        ops: (field operation -> count, ALU, tensor-core int8 operations)
+        per lane."""
+        field, alu, onehot = ops
+        t_ops = max(self.field_s(Counter({k: lanes * n
+                                          for k, n in field.items()})),
+                    lanes * alu / self.alu_per_s,
+                    lanes * onehot / INT8_OPS_PER_S)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                           else "bytes")
+
+
+def share(bms, ms, what):
+    """bound / time; a share over 100% means the bound is wrong."""
+    check(bms <= ms, "%s: bound %.3f ms over its time %.3f ms" % (what, bms,
+                                                                  ms))
+    return 100 * bms / ms
+
+
+def start_rate_build():
+    """Start nvcc on the rate microkernels, beside phase 2's builds."""
+    from curve25519_tpu_torch.ops.cuda import build
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = build.BUILD_DIR / "product_rates.cu"
+    src.write_text(RATE_SRC)
+    so = build.BUILD_DIR / "libproduct_rates.so"
+    log = build.BUILD_DIR / "product_rates.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, "-o",
+                                 str(so), str(src)], stdout=f,
+                                stderr=subprocess.STDOUT)
+    return proc, so, log
+
+
+def phase_rates(card, job):
+    """Measure the card's two exact multipliers, in products per second:
+    every thread of 8 blocks of 256 per SM runs RATE_ITERS trips of
+    RATE_UNROLL x RATE_CHAINS independent mul.wide.u32, and then as many
+    fma.rn.f64. The SASS must hold one IMAD.WIDE.U32 or DFMA per product of
+    the loop body. Also reads the SM clock while a queue of launches runs.
+    Returns the Bound at these rates."""
+    import ctypes
+    from curve25519_tpu_torch.ops.cuda import build
+    proc, so, log = job
+    check(proc.wait() == 0, "nvcc failed on the rate kernels:\n"
+          + log.read_text())
+    cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    lib = ctypes.CDLL(str(so))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    blocks = 8 * sms
+    per_trip = RATE_UNROLL * RATE_CHAINS
+    rates = []
+    for name, opcode, arg, ctype, dtype in (
+            ("mulwide", "IMAD.WIDE.U32", 0x5851F42D, ctypes.c_uint32,
+             torch.int64),
+            ("dfma", "DFMA", 0.5, ctypes.c_double, torch.float64)):
+        found = sass.count(opcode)
+        check(found >= per_trip, "the %s rate kernel's SASS has %d %s, not "
+              "%d" % (name, found, opcode, per_trip))
+        launch = getattr(lib, name + "_rate_launch")
+        launch.argtypes = [ctypes.c_void_p, ctype, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+        out = torch.zeros(blocks * 256, dtype=dtype, device="cuda")
+
+        def run():
+            rc = launch(out.data_ptr(), arg, RATE_ITERS, blocks,
+                        torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, "the %s rate kernel failed to launch: %d"
+                  % (name, rc))
+
+        run()
+        seconds = min(timed_once(run)[0] for _ in range(3))
+        check(bool(out.ne(0).any()), "the %s rate kernel wrote nothing"
+              % name)
+        per_s = blocks * 256 * RATE_ITERS * per_trip / seconds
+        for _ in range(int(1.0 / seconds) + 1):   # about a second of launches
+            run()
+        busy_mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+             "nounits"], capture_output=True, text=True,
+            check=True).stdout.split()[0])
+        torch.cuda.synchronize()
+        print("phase 2 bound [%s]: %s rate %.4g products/s = %.2f per clock "
+              "per SM at the maximum %.0f MHz, %.2f at the %.0f MHz read "
+              "under this load, on %d SMs (%d x %d products per thread, best "
+              "of 3, %.3f ms; %d %s in the SASS)"
+              % (card, name, per_s, per_s / (sms * clock), clock / 1e6,
+                 per_s / (sms * busy_mhz * 1e6), busy_mhz, sms, RATE_ITERS,
+                 per_trip, seconds * 1e3, found, opcode))
+        rates.append(per_s)
+    return Bound(*rates)
 
 
 # ---------------------------------------------------------------------------
@@ -665,7 +878,7 @@ def phase_x25519_known_answers(dev, rng):
           % ORACLE_LANES)
 
 
-def phase_x25519_main(dev, rng, card, counts, batch=MAIN_BATCH):
+def phase_x25519_main(dev, rng, card, counts, bound, batch=MAIN_BATCH):
     from curve25519_tpu_torch.models import montgomery, x25519
     from curve25519_tpu_torch.utils.profiling import bench
 
@@ -698,12 +911,13 @@ def phase_x25519_main(dev, rng, card, counts, batch=MAIN_BATCH):
     plain_s, plain = timed_once(montgomery.point_multiply, pk_b, sk_a)
     err = max_abs_err(plain, s_ab)
     check(err == 0, "plain != kernel at the main batch")
-    bms, by = bound_ms(tuple(batch * v for v in ladder_ops()), batch * 96)
+    bms, by = bound.ms(ladder_ops(), batch, batch * 96)
     print("phase 5 timing [%s]: create_shared_key B=%d kernel %.3f ms "
           "(%.1f ops/s, best of 3 x 3 after warm-up) | plain PyTorch %.3f ms "
-          "(%.1f ops/s, one call) | bound %.3f ms (%s) | byte-equal"
+          "(%.1f ops/s, one call) | bound %.3f ms (%s), %.1f%% | byte-equal"
           % (card, batch, kernel_s * 1e3, batch / kernel_s, plain_s * 1e3,
-             batch / plain_s, bms, by))
+             batch / plain_s, bms, by,
+             share(bms, kernel_s * 1e3, "x25519_ladder_kernel")))
     return {"max_abs_err": err, "ms": kernel_s * 1e3,
             "plain_ms": plain_s * 1e3, "bound_ms": bms, "bound_by": by}
 
@@ -884,7 +1098,7 @@ def phase_ed_known_answers(dev, rng):
           % ("/".join(map(str, SHA_LENGTHS)), ORACLE_LANES))
 
 
-def phase_ed_main(dev, rng, card, counts, batch=MAIN_BATCH):
+def phase_ed_main(dev, rng, card, counts, bound, batch=MAIN_BATCH):
     from curve25519_tpu_torch.models import blinding, ed25519, x25519
     from curve25519_tpu_torch.ops import fold, sha512
     from curve25519_tpu_torch.ops.cuda import (
@@ -980,7 +1194,7 @@ def phase_ed_main(dev, rng, card, counts, batch=MAIN_BATCH):
             lambda c: ek.base_mult_plain(c, mode="u_bytes", nfolds=4), (cut4,),
             basemult_ops(4), batch * (256 + 32)),
         "sha512_kernel": (shk.sha512_blocks, shk.sha512_blocks_plain,
-                          (words, nblocks), (0, SHA_BLOCK_ALU, 0),
+                          (words, nblocks), ({}, SHA_BLOCK_ALU, 0),
                           batch * (128 + 4 + 64)),
         "keygen_kernel": (
             lambda s: sgk.keygen(s, zr=zr),
@@ -991,8 +1205,8 @@ def phase_ed_main(dev, rng, card, counts, batch=MAIN_BATCH):
             lambda p, m, n: sgk.sign_plain(p, m, n, zr=zr), (priv, msg, ml),
             sign_ops(w3_blocks), batch * (64 + 64 + 4 + 64)),
     }
-    rows = time_kernels(cases, batch, card, 8)
-    time_long_sha512(dev, card)
+    rows = time_kernels(cases, batch, card, 8, bound)
+    time_long_sha512(dev, card, bound)
     for label, fn, args in (
             ("create_keypair", ed25519.create_keypair, (seeds,)),
             ("sign", ed25519.sign, (priv, msg)),
@@ -1004,7 +1218,8 @@ def phase_ed_main(dev, rng, card, counts, batch=MAIN_BATCH):
     return rows
 
 
-def time_long_sha512(dev, card, lanes=LONG_SHA_LANES, length=1 << 20):
+def time_long_sha512(dev, card, bound, lanes=LONG_SHA_LANES,
+                     length=1 << 20):
     """The long-message SHA-512 row in the reference's shape
     (benchmarks/bench_suite.py, sha512_long): 1,024 lanes of 1 MiB with
     lengths 0, 1, 111, L - 1, random and L, made on the card. The kernel on
@@ -1033,7 +1248,7 @@ def time_long_sha512(dev, card, lanes=LONG_SHA_LANES, length=1 << 20):
     kernel_s = bench(shk.sha512_blocks, words, nblocks, reps=2, rounds=3)
     hashed = int(lengths.to(torch.int64).sum())
     active = int(nblocks.to(torch.int64).sum())
-    bms, by = bound_ms((0, active * SHA_BLOCK_ALU, 0),
+    bms, by = bound.ms(({}, SHA_BLOCK_ALU, 0), active,
                        active * 128 + lanes * (4 + 64))
     print("phase 8 timing [%s]: sha512_kernel long messages, %d lanes of "
           "%d bytes (lengths 0, 1, 111, L-1, random, L; %d bytes hashed, %d "
@@ -1042,13 +1257,13 @@ def time_long_sha512(dev, card, lanes=LONG_SHA_LANES, length=1 << 20):
           "(%s), %.1f%% | == hashlib on 6 lanes"
           % (card, lanes, length, hashed, active, kernel_s * 1e3,
              hashed / kernel_s / 1e9, pack_s * 1e3, bms, by,
-             100 * bms / (kernel_s * 1e3)))
+             share(bms, kernel_s * 1e3, "sha512_kernel, long messages")))
 
 
-def time_kernels(cases, batch, card, phase):
-    """Per case name: (kernel wrapper, plain version, args, (IMAD, ALU,
-    tensor-core int8 operations) per lane, bytes[, args of the plain version's warm-up call, default the
-    first 8 rows]). Times the wrapper (best of 3 x 3 after a warm-up) and
+def time_kernels(cases, batch, card, phase, bound):
+    """Per case name: (kernel wrapper, plain version, args, (field
+    operations, ALU, tensor-core int8 operations) per lane, bytes[, args of
+    the plain version's warm-up call, default the first 8 rows]). Times the wrapper (best of 3 x 3 after a warm-up) and
     one call of the plain version on the same args, holds the two equal and
     returns each kernel's row for the JSON line."""
     from curve25519_tpu_torch.utils.profiling import bench
@@ -1060,15 +1275,15 @@ def time_kernels(cases, batch, card, phase):
         plain_s, plain = timed_once(plain_fn, *args)
         err = max_abs_err(kernel_fn(*args), plain)
         check(err == 0, "%s != plain at the main batch" % name)
-        bms, by = bound_ms(tuple(batch * v for v in ops), nbytes)
+        bms, by = bound.ms(ops, batch, nbytes)
         rows[name] = {"max_abs_err": err, "ms": kernel_s * 1e3,
                       "plain_ms": plain_s * 1e3, "bound_ms": bms,
                       "bound_by": by}
         print("phase %d timing [%s]: %s B=%d kernel %.3f ms (best of 3 x 3 "
               "after warm-up) | plain PyTorch %.3f ms (one call) | bound "
-              "%.3f ms (%s) | byte-equal"
+              "%.3f ms (%s), %.1f%% | byte-equal"
               % (phase, card, name, batch, kernel_s * 1e3, plain_s * 1e3, bms,
-                 by))
+                 by, share(bms, kernel_s * 1e3, name)))
     return rows
 
 
@@ -1266,7 +1481,7 @@ def phase_verify_known_answers(dev, rng):
           "%d random lanes vs the Python-integer verify: ok" % ORACLE_LANES)
 
 
-def phase_verify_main(dev, rng, card, counts, batch=MAIN_BATCH):
+def phase_verify_main(dev, rng, card, counts, bound, batch=MAIN_BATCH):
     from curve25519_tpu_torch.models import ed25519
     from curve25519_tpu_torch.ops.cuda import verify_kernel as vk
 
@@ -1330,7 +1545,7 @@ def phase_verify_main(dev, rng, card, counts, batch=MAIN_BATCH):
                            (pk, u, v), oneshot_ops(),
                            batch * (32 + 128 + 256 + 32 + 1)),
     }
-    rows = time_kernels(cases, batch, card, 11)
+    rows = time_kernels(cases, batch, card, 11, bound)
     for label, fn, args in (
             ("verify_init", ed25519.verify_init, (pk,)),
             ("verify_check", ed25519.verify_check, (ctx, sig, msg)),
@@ -1839,17 +2054,20 @@ def main():
     rng = np.random.default_rng(SEED)
 
     card = phase_device()
+    rate_job = start_rate_build()
     build_info = phase_build()
+    bound = phase_rates(card, rate_job)
     counts = Counts()
     ladder_err = phase_ladder_vs_plain(dev, rng)
     phase_x25519_known_answers(dev, rng)
-    rows = {"x25519_ladder_kernel": phase_x25519_main(dev, rng, card, counts)}
+    rows = {"x25519_ladder_kernel": phase_x25519_main(dev, rng, card, counts,
+                                                      bound)}
     errs = phase_ed_kernels_vs_plain(dev, rng)
     phase_ed_known_answers(dev, rng)
-    rows.update(phase_ed_main(dev, rng, card, counts))
+    rows.update(phase_ed_main(dev, rng, card, counts, bound))
     errs.update(phase_verify_kernels_vs_plain(dev, rng))
     phase_verify_known_answers(dev, rng)
-    rows.update(phase_verify_main(dev, rng, card, counts))
+    rows.update(phase_verify_main(dev, rng, card, counts, bound))
     phase_api(dev, rng, card, counts)
     phase_mesh(dev, rng, card, counts)
     check("jax" not in sys.modules and "curve25519_tpu" not in sys.modules,

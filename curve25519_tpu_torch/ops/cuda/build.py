@@ -36,7 +36,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["LIBRARIES", "build_cuda", "load_cuda", "launch", "build_host",
-           "load_host"]
+           "load_host", "nvcc"]
 
 _DIR = Path(__file__).resolve().parent
 CSRC = _DIR / "csrc"
@@ -76,7 +76,8 @@ GXX_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC", "-Wno-unknown-pragmas",
              "-x", "c++"]
 
 
-def _nvcc():
+def nvcc():
+    """Path of nvcc: CUDA_HOME or CUDA_PATH, /usr/local/cuda, else PATH."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     for cand in ([Path(home) / "bin" / "nvcc"] if home else []) + [
             Path("/usr/local/cuda/bin/nvcc")]:
@@ -108,7 +109,7 @@ def _build_lock(directory):
         yield
 
 
-def _parse_ptxas(log, kernels):
+def parse_ptxas(log, kernels):
     """Per kernel of `kernels`: registers per thread and spill and stack
     bytes from nvcc's -Xptxas -v report (one chunk per entry function)."""
     info = {}
@@ -141,13 +142,13 @@ def build_cuda(names=None):
 
 def _build_cuda(names):
     names = list(LIBRARIES) if names is None else list(names)
-    nvcc = _nvcc()
+    nvcc_path = nvcc()
     t0 = time.perf_counter()
     running = {}
     for name in names:
         tmp = _so(name).with_suffix(".so.tmp%d" % os.getpid())
         log = open(BUILD_DIR / (name + ".log"), "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / (name + ".cu"))]
+        cmd = [nvcc_path, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / (name + ".cu"))]
         running[name] = (subprocess.Popen(cmd, stdout=log,
                                           stderr=subprocess.STDOUT), tmp, log)
     report, failed = {}, []
@@ -165,7 +166,7 @@ def _build_cuda(names):
                 continue
             os.replace(tmp, _so(name))
             report[name] = {"build_seconds": seconds,
-                            "kernels": _parse_ptxas(text, LIBRARIES[name][0])}
+                            "kernels": parse_ptxas(text, LIBRARIES[name][0])}
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     report["wall_seconds"] = time.perf_counter() - t0
@@ -232,6 +233,8 @@ def load_host(so_path):
     lib.x25519_ladder_host.restype = None
     lib.fe25519_op_host.argtypes = [_int, _vp, _vp, _vp, _i64]
     lib.fe25519_op_host.restype = ctypes.c_int
+    lib.fe_wide_op_host.argtypes = [_int, _vp, _vp, _vp, _i64]
+    lib.fe_wide_op_host.restype = ctypes.c_int
     lib.sha512_host.argtypes = [_int, _vp, _vp, _vp, _i64, _i64]
     lib.sha512_host.restype = None
     lib.basemult_host.argtypes = [_int, _vp, _vp, _vp, _i64, _vp, _i64, _vp,

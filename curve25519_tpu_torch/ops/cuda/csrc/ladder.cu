@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel curve25519_tpu/ops/pallas/ladder_kernel.py
 // `_ladder_kernel` (launched by `ladder_tiled`, wrapped by
-// `point_multiply_pallas`). It computes the same thing, step for step:
+// `point_multiply_pallas`). It computes the same thing, step for step, in
+// another radix:
 //   - decode the peer's u from its 32 bytes with bit 255 masked; a
 //     non-canonical u (>= p) is decoded unreduced;
 //   - start from P = (u*zr : zr), Q = 2P (zr = 1 when no zr is given);
@@ -12,42 +13,64 @@
 // Where the TPU kernel padded the batch to whole 1024-lane tiles, each thread
 // here owns one lane and the grid masks the ragged end (lane < n).
 //
-// Constant time: the swap is mask arithmetic on the key bit, and the key
-// byte read in each step is indexed by the public loop counter only.
+// Constant time: the swap is mask arithmetic on the key bit, the key byte
+// read in each step is indexed by the public loop counter only, the loop
+// always runs 254 steps, and no branch or index of the field core depends
+// on a limb value.
 //
-// What bounds it on this card: int32 multiply-add issue. A lane performs
-// about 2,556 field multiplies and squarings (254 x (5M + 4S) for the ladder,
-// 254 S + 11 M for the inversion, 5 for the start), each 210-400 IMADs plus
-// ~120 carry ops, and nothing is shared between lanes. What the design does
-// about it: nothing yet. This version keeps the 13-bit radix and the op
-// sequence of ops/fe.py so that its limbs equal the plain version's; a radix
-// that uses 32x32->64 `mad.wide` is later work.
+// What bounds it on this card: the FMA pipe. A lane performs about 2,556
+// field multiplies and squarings (254 x (5M + 4S + 1 small) for the ladder,
+// 254 S + 11 M for the inversion, a few for the start), and nothing is
+// shared between lanes. The least work for them is about 125,000 32x32->64
+// products per lane (one Karatsuba level; the bound in chip_smoke.py also
+// lets the FP64 pipe take a share), and an `IMAD.WIDE.U32` issues at half
+// the rate of a 32-bit IMAD (about 31 per clock per SM). What the design
+// does about it:
+// the field core is fe25519_wide.cuh, ten 32-bit limbs in radix 2^25.5
+// whose products are single `IMAD.WIDE.U32`s summed into 64-bit columns
+// (100 per multiply, 55 per squaring, 10 per a24 multiply), against
+// 400 / 210 / 20 int32 IMADs and twice the carries of the reference's
+// 13-bit radix, which the plain version keeps; its multiply operands stay
+// 32-bit (fe_wide::operand), so no product pays a second IMAD for a high
+// word. One ladder step is about 1,700 SASS instructions, 740 of them
+// IMAD.WIDE. The state is five 10-limb elements: 130 registers, no spill,
+// 128 threads a block. zr arrives in the 13-bit radix: it is canonicalized
+// with fe25519 once per lane and decoded in the new radix; the output
+// depends only on zr's value mod p.
 //
 // Built by curve25519_tpu_torch/ops/cuda/build.py: with nvcc into a shared
 // library that ctypes loads (x25519_ladder_launch), and with g++ for the CPU
-// tests (x25519_ladder_host, fe25519_op_host), which run the same per-lane
+// tests (x25519_ladder_host, fe_wide_op_host, and fe25519_op_host for the
+// 13-bit core that the other kernels share), which run the same per-lane
 // code on the host.
 
 #include "fe25519.cuh"
+#include "fe25519_wide.cuh"
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
 
-using namespace fe25519;
+// zr's 20 signed-weak 13-bit limbs -> the same value in the wide radix.
+FE_HD fe_wide::Fe zr_from_limbs(const int32_t* zr_limbs) {
+  fe25519::Fe z;
+#pragma unroll
+  for (int i = 0; i < fe25519::NLIMBS; i++) z.v[i] = zr_limbs[i];
+  int32_t enc[32];
+  fe25519::to_bytes(enc, z);
+  uint8_t b[32];
+#pragma unroll
+  for (int j = 0; j < 32; j++) b[j] = (uint8_t)enc[j];
+  return fe_wide::from_bytes(b);
+}
 
 // One lane: out = x-coordinate bytes of clamp(key) * u. `key` must already
 // be clamped (bit 254 set). `zr` is 20 signed-weak limbs, or null for one.
 FE_HD void x25519_lane(uint8_t* out, const uint8_t* ubytes, const uint8_t* key,
                        const int32_t* zr_limbs) {
-  int32_t b[32];
-#pragma unroll
-  for (int j = 0; j < 32; j++) b[j] = ubytes[j];  // widen before any shift
-  b[31] &= 0x7F;                                   // RFC 7748: mask bit 255
-  const Fe u = from_bytes(b);
-  Fe zr;
-#pragma unroll
-  for (int i = 0; i < NLIMBS; i++) zr.v[i] = zr_limbs ? zr_limbs[i] : (i == 0);
+  using namespace fe_wide;
+  const Fe u = from_bytes(ubytes);        // bit 255 is not read (RFC 7748)
+  const Fe zr = zr_limbs ? zr_from_limbs(zr_limbs) : one();
 
   // State after the virtual step for bit 254: A = 2P (doubled side),
   // B = P (sum side), prev = 1; the logical low point is prev ? B : A.
@@ -55,20 +78,18 @@ FE_HD void x25519_lane(uint8_t* out, const uint8_t* ubytes, const uint8_t* key,
   Fe bz = zr;
   Fe ax, az;
   {
-    const Fe a = add(bx, bz);
-    const Fe aa = sqr(a);
-    const Fe bm = sub(bx, bz);
-    const Fe bb = sqr(bm);
+    const Fe aa = sqr(add(bx, bz));
+    const Fe bb = sqr(sub(bx, bz));
     ax = mul(aa, bb);
     const Fe e = sub(aa, bb);
     az = mul(e, mul_small_add(aa, A24, e));
   }
-  int32_t prev = (key[31] >> 6) & 1;
+  uint32_t prev = (key[31] >> 6) & 1;
 
 #pragma unroll 1
   for (int i = 253; i >= 0; i--) {
-    const int32_t bit = (key[i >> 3] >> (i & 7)) & 1;
-    const int32_t s = bit ^ prev;
+    const uint32_t bit = (key[i >> 3] >> (i & 7)) & 1;
+    const uint32_t s = bit ^ prev;
     const Fe x2 = select(s, bx, ax);
     const Fe x3 = select(s, ax, bx);
     const Fe z2 = select(s, bz, az);
@@ -91,11 +112,7 @@ FE_HD void x25519_lane(uint8_t* out, const uint8_t* ubytes, const uint8_t* key,
   }
   const Fe lo_x = select(prev, bx, ax);
   const Fe lo_z = select(prev, bz, az);
-
-  int32_t enc[32];
-  to_bytes(enc, mul(lo_x, inv(lo_z)));
-#pragma unroll
-  for (int j = 0; j < 32; j++) out[j] = (uint8_t)enc[j];
+  to_bytes(out, mul(lo_x, inv(lo_z)));
 }
 
 #ifdef __CUDACC__
@@ -109,7 +126,7 @@ x25519_ladder_kernel(uint8_t* __restrict__ out, const uint8_t* __restrict__ u,
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   x25519_lane(out + 32 * lane, u + 32 * lane, k + 32 * lane,
-              zr ? zr + NLIMBS * lane : nullptr);
+              zr ? zr + fe25519::NLIMBS * lane : nullptr);
 }
 
 // out, u, k: [n, 32] uint8, contiguous, on the device; zr: [n, 20] int32 or
@@ -137,7 +154,8 @@ extern "C" const char* cuda_error_string(int code) {
 extern "C" void x25519_ladder_host(uint8_t* out, const uint8_t* u, const uint8_t* k,
                                    const int32_t* zr, int64_t n) {
   for (int64_t i = 0; i < n; i++)
-    x25519_lane(out + 32 * i, u + 32 * i, k + 32 * i, zr ? zr + NLIMBS * i : nullptr);
+    x25519_lane(out + 32 * i, u + 32 * i, k + 32 * i,
+                zr ? zr + fe25519::NLIMBS * i : nullptr);
 }
 
 enum FeOp {
@@ -145,11 +163,12 @@ enum FeOp {
   FE_TO_BYTES, FE_FROM_BYTES, FE_POW2523
 };
 
-// One field op over n lanes. x, y, out: [n, 20] int32 limbs, except that
+// One op of the 13-bit core over n lanes. x, y, out: [n, 20] int32 limbs, except that
 // FE_TO_BYTES writes and FE_FROM_BYTES reads [n, 32] int32 byte values.
 // FE_MUL_SMALL_ADD computes x + A24 * y. Returns 0, or -1 for an unknown op.
 extern "C" int fe25519_op_host(int op, int32_t* out, const int32_t* x,
                                const int32_t* y, int64_t n) {
+  using namespace fe25519;
   for (int64_t lane = 0; lane < n; lane++) {
     Fe a, b, r;
     if (op == FE_FROM_BYTES) {
@@ -181,6 +200,51 @@ extern "C" int fe25519_op_host(int op, int32_t* out, const int32_t* x,
       }
     }
     for (int i = 0; i < NLIMBS; i++) out[NLIMBS * lane + i] = r.v[i];
+  }
+  return 0;
+}
+
+enum WideOp {
+  WIDE_ADD, WIDE_SUB, WIDE_MUL, WIDE_SQR, WIDE_MUL_SMALL_ADD, WIDE_SELECT,
+  WIDE_CANON, WIDE_INV, WIDE_TO_BYTES, WIDE_FROM_BYTES
+};
+
+// One op of the wide core (fe25519_wide.cuh) over n lanes. x, y, out:
+// [n, 10] uint32 limbs, except that WIDE_TO_BYTES writes and
+// WIDE_FROM_BYTES reads [n, 32] bytes. WIDE_MUL_SMALL_ADD computes
+// x + A24 * y; WIDE_SELECT gives x on odd lanes and y on even ones.
+// Returns 0, or -1 for an unknown op.
+extern "C" int fe_wide_op_host(int op, void* out, const void* x,
+                               const void* y, int64_t n) {
+  using namespace fe_wide;
+  uint32_t* limbs_out = (uint32_t*)out;
+  const uint32_t* xl = (const uint32_t*)x;
+  const uint32_t* yl = (const uint32_t*)y;
+  for (int64_t lane = 0; lane < n; lane++) {
+    Fe a, b, r;
+    if (op == WIDE_FROM_BYTES) {
+      r = from_bytes((const uint8_t*)x + 32 * lane);
+    } else {
+      for (int i = 0; i < NLIMBS; i++) {
+        a.v[i] = xl[NLIMBS * lane + i];
+        b.v[i] = yl ? yl[NLIMBS * lane + i] : 0;
+      }
+      switch (op) {
+        case WIDE_ADD: r = add(a, b); break;
+        case WIDE_SUB: r = sub(a, b); break;
+        case WIDE_MUL: r = mul(a, b); break;
+        case WIDE_SQR: r = sqr(a); break;
+        case WIDE_MUL_SMALL_ADD: r = mul_small_add(a, A24, b); break;
+        case WIDE_SELECT: r = select((uint32_t)(lane & 1), a, b); break;
+        case WIDE_CANON: r = canon(a); break;
+        case WIDE_INV: r = inv(a); break;
+        case WIDE_TO_BYTES:
+          to_bytes((uint8_t*)out + 32 * lane, a);
+          continue;
+        default: return -1;
+      }
+    }
+    for (int i = 0; i < NLIMBS; i++) limbs_out[NLIMBS * lane + i] = r.v[i];
   }
   return 0;
 }

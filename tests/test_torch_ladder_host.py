@@ -12,6 +12,14 @@ code is held, exactly, against:
 - the plain ladder (models/montgomery.point_multiply) and the Python oracle
   (curve25519_tpu.refmodel), byte for byte.
 
+The ladder kernel runs on its own core, ops/cuda/csrc/fe25519_wide.cuh (ten
+32-bit limbs in radix 2^25.5). Its checks are ``_check_wide_*`` helpers
+inside the tests below: an executable interval proof of its limb bounds
+(in the manner of tests/test_bounds.py), each of its ops through
+``fe_wide_op_host`` against Python integers mod p, and the RFC 7748 5.2
+1,000-iteration vector through ``x25519_ladder_host``. None of them runs
+JAX.
+
 The port's host core (curve25519_tpu_torch/native, a byte-equal copy of the
 JAX package's ref25519.cpp built with g++) is held against the JAX
 package's build of the same source through both packages' bindings.
@@ -56,6 +64,18 @@ OPS = {"add": 0, "sub": 1, "neg": 2, "mul": 3, "sqr": 4, "mul_small_add": 5,
        "canon": 6, "inv": 7, "to_bytes": 8, "from_bytes": 9}
 
 EDGE_U = [0, 1, P, P + 1, 2**255 - 1, 1 | 1 << 255]
+
+# the WideOp enum of ladder.cu
+WIDE_OPS = {"add": 0, "sub": 1, "mul": 2, "sqr": 3, "mul_small_add": 4,
+            "select": 5, "canon": 6, "inv": 7, "to_bytes": 8,
+            "from_bytes": 9}
+# fe25519_wide.cuh: limb i holds W_WIDTH[i] bits from bit W_OFF[i]
+W_WIDTH = [26 - (i & 1) for i in range(10)]
+W_OFF = [26 * ((i + 1) // 2) + 25 * (i // 2) for i in range(11)]
+# its stated invariants, as exclusive upper bounds per limb (all limbs >= 0)
+W_TIGHT = [(1 << w) + (1 << 11 if i in (1, 5) else 0)
+           for i, w in enumerate(W_WIDTH)]
+W_LOOSE = [t + (2 << w) for t, w in zip(W_TIGHT, W_WIDTH)]
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -155,6 +175,7 @@ def test_field_ops_equal_twin_and_fe_tile(lib, rng, names):
         np.testing.assert_array_equal(got, twin, err_msg=name)
         np.testing.assert_array_equal(got, untile(tile_fn(tile(x), tile(y))),
                                       err_msg=name)
+    _check_wide_ops(lib, rng, _WIDE_OF[names])
 
 
 def test_inv_equals_twin_and_fe_tile(lib, rng, tmp_path):
@@ -163,6 +184,8 @@ def test_inv_equals_twin_and_fe_tile(lib, rng, tmp_path):
     np.testing.assert_array_equal(got, fe.inv(torch.from_numpy(x)).numpy())
     np.testing.assert_array_equal(got, untile(ft.t_inv(tile(x))))
     _check_concurrent_host_builds(tmp_path)
+    _check_wide_core_bounds()
+    _check_wide_ops(lib, rng, ("inv",))
 
 
 # builds the host library into argv[1] with argv[2:] added to g++'s flags;
@@ -231,6 +254,266 @@ def test_from_bytes_equals_twin_and_sc_tile(lib, rng):
     np.testing.assert_array_equal(got, fe.from_bytes(torch.from_numpy(b)).numpy())
     rows = tile(b.astype(np.int32))
     np.testing.assert_array_equal(got, untile(sct.limbs_from_byte_rows(rows)))
+    _check_wide_ops(lib, rng, ("from_bytes",))
+    _check_wide_rfc7748_iterated(lib)
+
+
+# ---------------------------------------------------------------------------
+# The ladder's wide core (csrc/fe25519_wide.cuh)
+# ---------------------------------------------------------------------------
+# the wide ops checked beside each parametrized case of the 13-bit core
+_WIDE_OF = {("add", "sub"): ("add", "sub"),
+            ("neg", "mul_small_add"): ("mul_small_add", "select"),
+            ("mul", "sqr"): ("mul", "sqr"),
+            ("canon", "to_bytes"): ("canon", "to_bytes")}
+
+
+def _u(lo, hi, bits):
+    """An interval of unsigned values that must fit `bits` bits."""
+    assert 0 <= lo <= hi < 1 << bits, (lo, hi, bits)
+    return (lo, hi)
+
+
+def _iadd(a, b, bits):
+    return _u(a[0] + b[0], a[1] + b[1], bits)
+
+
+def _imul(a, b, bits):
+    return _u(a[0] * b[0], a[1] * b[1], bits)
+
+
+def _ishr(a, s):
+    return (a[0] >> s, a[1] >> s)
+
+
+def _imask(a, w):
+    """& (2^w - 1); tight when the interval stays in one 2^w window."""
+    if a[0] >> w == a[1] >> w:
+        return (a[0] & ((1 << w) - 1), a[1] & ((1 << w) - 1))
+    return (0, (1 << w) - 1)
+
+
+def _k(c):
+    return (c, c)
+
+
+def _w_add(x, y):
+    return [_iadd(a, b, 32) for a, b in zip(x, y)]
+
+
+def _w_sub(x, y):
+    """x + 2p - y, left to right in uint32: must not wrap either way."""
+    out = []
+    for i, (a, b) in enumerate(zip(x, y)):
+        two_p = (1 << 27) - 38 if i == 0 else (2 << W_WIDTH[i]) - 2
+        t = _iadd(a, _k(two_p), 32)
+        out.append(_u(t[0] - b[1], t[1] - b[0], 32))
+    return out
+
+
+def _w_reduce(h):
+    """reduce_cols: twelve carries of 64-bit columns, in carry_order."""
+    h = list(h)
+    for i in (0, 4, 1, 5, 2, 6, 3, 7, 4, 8, 9, 0):
+        c = _ishr(h[i], W_WIDTH[i])
+        h[i] = _imask(h[i], W_WIDTH[i])
+        if i == 9:
+            h[0] = _iadd(h[0], _imul(c, _k(19), 64), 64)
+        else:
+            h[i + 1] = _iadd(h[i + 1], c, 64)
+    return [_u(*v, 32) for v in h]
+
+
+def _w_mul(x, y):
+    h = []
+    for k in range(10):
+        acc = (0, 0)
+        for i in range(10):
+            j = (k - i) % 10
+            a = _imul(x[i], _k(2), 32) if i & j & 1 else x[i]
+            b = _imul(y[j], _k(19), 32) if i > k else y[j]
+            acc = _iadd(acc, _imul(a, b, 64), 64)
+        h.append(acc)
+    return _w_reduce(h)
+
+
+def _w_sqr(x):
+    h = [(0, 0)] * 10
+    for i in range(10):
+        for j in range(i, 10):
+            wrap, odd, pair = i + j >= 10, bool(i & j & 1), i < j
+            if not wrap:
+                a = _imul(x[i], _k(2), 32) if pair or odd else x[i]
+                b = _imul(x[j], _k(2), 32) if pair and odd else x[j]
+            elif j & 1:
+                a = _imul(x[i], _k(2), 32) if pair and odd else x[i]
+                b = _imul(x[j], _k(38 if pair or odd else 19), 32)
+            else:
+                a = _imul(x[i], _k(2), 32) if pair else x[i]
+                b = _imul(x[j], _k(19), 32)
+            k = (i + j) % 10
+            h[k] = _iadd(h[k], _imul(a, b, 64), 64)
+    return _w_reduce(h)
+
+
+def _w_msa(x, y):
+    return _w_reduce([_iadd(_imul(_k(A24), b, 64), a, 64)
+                      for a, b in zip(x, y)])
+
+
+def _w_canon(x):
+    """canon in uint32: one carry pass with the fold leaves V < 2p, so the
+    q chain gives 0 or 1; the second pass and the mask give exact limbs."""
+    h = list(x)
+
+    def carry_seq():
+        for i in range(9):
+            h[i + 1] = _iadd(h[i + 1], _ishr(h[i], W_WIDTH[i]), 32)
+            h[i] = _imask(h[i], W_WIDTH[i])
+
+    carry_seq()
+    h[0] = _iadd(h[0], _imul(_ishr(h[9], 25), _k(19), 32), 32)
+    h[9] = _imask(h[9], 25)
+    h[1] = _iadd(h[1], _ishr(h[0], 26), 32)
+    h[0] = _imask(h[0], 26)
+    assert sum(hi << W_OFF[i] for i, (_, hi) in enumerate(h)) < 2 * P
+    q = _ishr(_iadd(h[0], _k(19), 32), 26)
+    for i in range(1, 10):
+        q = _ishr(_iadd(h[i], q, 32), W_WIDTH[i])
+    assert q[1] <= 1
+    h[0] = _iadd(h[0], _imul(q, _k(19), 32), 32)
+    carry_seq()
+    h[9] = _imask(h[9], 25)
+    return h
+
+
+def _within(v, bounds):
+    return all(0 <= lo and hi < b for (lo, hi), b in zip(v, bounds))
+
+
+def _check_wide_core_bounds():
+    """The executable bounds proof of fe25519_wide.cuh. Every 32-bit
+    operand and sum and every 64-bit column, partial sum and carry of each
+    op fits (checked by _u as the models run); sub never goes below zero;
+    add and sub of TIGHT limbs are LOOSE; mul, sqr, mul_small_add and canon
+    of LOOSE limbs are TIGHT (canon's exact), as are from_bytes and one.
+    So any composition of the ladder's operations stays inside the stated
+    invariant, and one ladder step on interval limbs shows it."""
+    tight = [(0, b - 1) for b in W_TIGHT]
+    loose = [(0, b - 1) for b in W_LOOSE]
+    assert _within(tight, W_LOOSE)
+    for out in (_w_add(tight, tight), _w_sub(tight, tight)):
+        assert _within(out, W_LOOSE), out
+    for out in (_w_mul(loose, loose), _w_sqr(loose), _w_msa(loose, loose),
+                [(0, (1 << w) - 1) for w in W_WIDTH],       # from_bytes
+                [(1, 1)] + [(0, 0)] * 9):                    # one
+        assert _within(out, W_TIGHT), out
+    assert _within(_w_canon(loose), [1 << w for w in W_WIDTH])
+    # the stated slack of limbs 1 and 5 is needed: the carries reach it
+    out = _w_mul(loose, loose)
+    assert out[1][1] >= 1 << 25 and out[5][1] >= 1 << 25, out
+
+    # one ladder step (ladder.cu), state and u TIGHT
+    x2 = z2 = x3 = z3 = u = tight
+    a, bm = _w_add(x2, z2), _w_sub(x2, z2)
+    c, d = _w_add(x3, z3), _w_sub(x3, z3)
+    da, cb = _w_mul(d, a), _w_mul(c, bm)
+    aa, bb = _w_sqr(a), _w_sqr(bm)
+    e = _w_sub(aa, bb)
+    for out in (_w_sqr(_w_add(da, cb)), _w_mul(u, _w_sqr(_w_sub(da, cb))),
+                _w_mul(aa, bb), _w_mul(e, _w_msa(aa, e))):
+        assert _within(out, W_TIGHT), out
+
+
+def _w_value(limbs):
+    return sum(int(v) << W_OFF[i] for i, v in enumerate(limbs))
+
+
+def _w_limbs(value):
+    return [(value >> W_OFF[i]) & ((1 << w) - 1) for i, w in enumerate(W_WIDTH)]
+
+
+def _w_inputs(rng, bounds, n):
+    """n random limb rows below `bounds`, then the extremes: every limb at
+    its bound - 1, zero, and the canonical limbs of 1, p - 1 and 2^255 - 1
+    (which is >= p)."""
+    rand = np.stack([rng.integers(0, b, n, dtype=np.int64) for b in bounds],
+                    axis=1)
+    extreme = [[b - 1 for b in bounds], [0] * 10, _w_limbs(1),
+               _w_limbs(P - 1), _w_limbs(2**255 - 1)]
+    return np.concatenate([rand, np.array(extreme, np.int64)]).astype(
+        np.uint32)
+
+
+def wide_op(lib, name, x, y=None):
+    x = np.ascontiguousarray(x)
+    y = None if y is None else np.ascontiguousarray(y, np.uint32)
+    width = 32 if name == "to_bytes" else 10
+    out = np.zeros((len(x), width),
+                   np.uint8 if name == "to_bytes" else np.uint32)
+    rc = lib.fe_wide_op_host(WIDE_OPS[name], out.ctypes.data, x.ctypes.data,
+                             None if y is None else y.ctypes.data, len(x))
+    assert rc == 0
+    return out
+
+
+def _check_wide_ops(lib, rng, names):
+    """Each named op of the wide core through fe_wide_op_host against
+    Python integers mod p, on random limbs and the invariant's extremes;
+    outputs must also lie inside the invariant the proof states."""
+    canon_bounds = [1 << w for w in W_WIDTH]
+    for name in names:
+        if name == "from_bytes":
+            b = rng.integers(0, 256, (40, 32), dtype=np.uint8)
+            b[:8, 31] |= 0x80                     # bit 255 is not read
+            b[8] = 0xFF                           # 2^256 - 1 -> 2^255 - 1
+            got = wide_op(lib, name, b)
+            for row, want in zip(got, b):
+                v = int.from_bytes(want.tobytes(), "little") % 2**255
+                assert _w_value(row) == v and _within(
+                    [(int(t), int(t)) for t in row], canon_bounds), name
+            continue
+        ins = W_TIGHT if name in ("add", "sub") else W_LOOSE
+        x = _w_inputs(rng, ins, 4 if name == "inv" else 40)
+        y = _w_inputs(rng, ins, len(x) - 5)[::-1].copy()
+        got = wide_op(lib, name, x, y)
+        for lane, (row, a, b) in enumerate(zip(got, x, y)):
+            va, vb = _w_value(a), _w_value(b)
+            if name == "to_bytes":
+                assert row.tobytes() == (va % P).to_bytes(32, "little"), name
+                continue
+            want, bound = {
+                "add": (va + vb, W_LOOSE), "sub": (va - vb, W_LOOSE),
+                "mul": (va * vb, W_TIGHT), "sqr": (va * va, W_TIGHT),
+                "mul_small_add": (va + A24 * vb, W_TIGHT),
+                "select": (va if lane & 1 else vb, W_LOOSE),
+                "canon": (va, canon_bounds),
+                "inv": (pow(va, P - 2, P), W_TIGHT),
+            }[name]
+            value = _w_value(row)
+            assert value % P == want % P, (name, lane)
+            assert _within([(int(t), int(t)) for t in row], bound), (name,
+                                                                     lane)
+            if name == "canon":
+                assert value == va % P
+            if name == "select":
+                np.testing.assert_array_equal(row, a if lane & 1 else b)
+
+
+def _check_wide_rfc7748_iterated(lib):
+    """RFC 7748 5.2: k = u = 9, then k, u = X25519(k, u), k; after 1 and
+    after 1,000 iterations, through x25519_ladder_host."""
+    k = u = bytes([9]) + bytes(31)
+    for i in range(1000):
+        kc = codec.clamp(torch.frombuffer(bytearray(k), dtype=torch.uint8))
+        out = host_ladder(lib, np.frombuffer(u, np.uint8)[None],
+                          kc.numpy()[None])
+        k, u = out[0].tobytes(), k
+        if i == 0:
+            assert k.hex() == ("422c8e7a6227d7bca1350b3e2bb7279f"
+                               "7897b87bb6854b783c60e80311ae3079")
+    assert k.hex() == ("684cf59ba83309552800ef566f2f4d3c"
+                       "1c3887c49360e3875f2eb94d99532c51")
 
 
 def test_host_ladder_equals_plain(lib, rng):

@@ -1,0 +1,445 @@
+"""Measure the X25519 ladder kernel and the field cores on one CUDA card.
+
+    python3 tools/ladder_probe.py [--parent DIR] [--variants 64:1,128:4]
+
+Run from the root of a checkout on a machine with a CUDA card and nvcc.
+Prints one line per measurement and, last, one JSON object of them all;
+builds into curve25519_tpu_torch/ops/cuda/_build/probe/ (git-ignored):
+
+1. Field cores, one op at a time, over 262,144 lanes at 256 threads a
+   block: the 13-bit core of the Edwards kernels (csrc/fe25519.cuh), the
+   ladder's wide core (csrc/fe25519_wide.cuh) and the alternative weighed
+   against it, eight 32-bit words with lazy reduction by 2^256 = 38 (the
+   reference library's portable core, written out here and nowhere else).
+   For each op: the SASS opcodes of one trip of a chain kernel that does
+   one op per trip (x, y = x * y, x; or x = x^2), ptxas's registers, and
+   the device time of one op per lane.
+2. Ladder builds: the checkout's csrc/ladder.cu as it ships; its lane
+   function in a kernel of the probe's own at each `--variants`
+   threads:min_blocks (block size and __launch_bounds__ minimum); and, with
+   `--parent`, the csrc/ladder.cu of another checkout (a `git archive` of
+   the parent commit, say). Each gets its registers, spills and the SASS
+   opcodes of the whole kernel and of its longest loop (one ladder step);
+   all run on the same lanes, must return the same bytes, and are timed
+   in turns (builds in order, then reversed, three times; each the best of
+   3 launches by CUDA events).
+"""
+
+import argparse
+import ctypes
+import json
+import re
+import subprocess
+import sys
+import time
+from collections import Counter
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from curve25519_tpu_torch.ops.cuda import build  # noqa: E402
+
+PROBE_DIR = build.BUILD_DIR / "probe"
+THREADS = 256
+BATCH = 262_144
+ROUNDS = 3
+# SASS opcodes by pipe: IMAD* on the FMA pipe; these on the ALU pipe
+ALU_OPS = ("IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "IABS", "IMNMX",
+           "PRMT", "SHL", "SHR", "FLO", "POPC", "BMSK", "SGXT", "PLOP3")
+
+CORES_SRC = r"""
+#include "fe25519.cuh"
+#include "fe25519_wide.cuh"
+#include <cuda_runtime.h>
+
+// Eight 32-bit words, lazy reduction by 2^256 = 38 (mod p): the reference
+// library's portable core (ecp_MulReduce, ecp_SqrReduce), for comparison.
+namespace w8 {
+struct Fe { uint32_t v[8]; };
+// t (16 words) folded by 2^256 = 38 into 8 words, below 2^256
+FE_HD Fe fold(const uint32_t* t) {
+  Fe r;
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    c += (uint64_t)t[i + 8] * 38 + t[i];
+    r.v[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  c *= 38;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    c += r.v[i];
+    r.v[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  r.v[0] += 38 * (uint32_t)c;
+  return r;
+}
+FE_HD Fe mul(const Fe& a, const Fe& b) {
+  uint32_t t[16];
+#pragma unroll
+  for (int i = 0; i < 16; i++) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      c += (uint64_t)a.v[i] * b.v[j] + t[i + j];
+      t[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+    t[i + 8] = (uint32_t)c;
+  }
+  return fold(t);
+}
+// 28 cross products, doubled by a shift, plus the 8 squares
+FE_HD Fe sqr(const Fe& a) {
+  uint32_t t[16];
+#pragma unroll
+  for (int i = 0; i < 16; i++) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 7; i++) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = i + 1; j < 8; j++) {
+      c += (uint64_t)a.v[i] * a.v[j] + t[i + j];
+      t[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+    t[i + 8] = (uint32_t)c;
+  }
+  uint32_t top = 0;
+#pragma unroll
+  for (int i = 0; i < 16; i++) {
+    const uint32_t w = t[i];
+    t[i] = (w << 1) | top;
+    top = w >> 31;
+  }
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    const uint64_t s = (uint64_t)a.v[i] * a.v[i];
+    c += (uint64_t)t[2 * i] + (uint32_t)s;
+    t[2 * i] = (uint32_t)c;
+    c = (c >> 32) + t[2 * i + 1] + (s >> 32);
+    t[2 * i + 1] = (uint32_t)c;
+    c >>= 32;
+  }
+  return fold(t);
+}
+}  // namespace w8
+
+#define CHAIN(NAME, NS, N, T, STEP)                                         \
+  __global__ void __launch_bounds__(256) NAME(uint32_t* io, int iters) {    \
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;                    \
+    NS::Fe x, y;                                                            \
+    _Pragma("unroll") for (int i = 0; i < N; i++) {                         \
+      x.v[i] = (T)io[(2 * t) * N + i];                                      \
+      y.v[i] = (T)io[(2 * t + 1) * N + i];                                  \
+    }                                                                       \
+    _Pragma("unroll 1") for (int it = 0; it < iters; it++) { STEP; }        \
+    _Pragma("unroll") for (int i = 0; i < N; i++)                           \
+      io[(2 * t) * N + i] = (uint32_t)x.v[i];                               \
+  }
+
+#define OPS(CORE, NS, N, T, MUL, SQR)                                       \
+  CHAIN(CORE##_mul, NS, N, T, const NS::Fe p = MUL(x, y); y = x; x = p)     \
+  CHAIN(CORE##_sqr, NS, N, T, x = SQR(x))
+
+OPS(fe13, fe25519, 20, int32_t, fe25519::mul, fe25519::sqr)
+OPS(wide, fe_wide, 10, uint32_t, fe_wide::mul, fe_wide::sqr)
+OPS(w8, w8, 8, uint32_t, w8::mul, w8::sqr)
+
+#define LAUNCH(NAME)                                                        \
+  extern "C" int NAME##_launch(void* io, int iters, int blocks, void* s) {  \
+    NAME<<<blocks, 256, 0, (cudaStream_t)s>>>((uint32_t*)io, iters);        \
+    return (int)cudaGetLastError();                                         \
+  }
+#define LAUNCHES(CORE) LAUNCH(CORE##_mul) LAUNCH(CORE##_sqr)
+LAUNCHES(fe13)
+LAUNCHES(wide)
+LAUNCHES(w8)
+"""
+
+# core -> (limbs, the bound of the random limbs that start each chain)
+CORES = {"fe13": (20, 1 << 13), "wide": (10, 1 << 25), "w8": (8, 1 << 32)}
+
+
+def nvcc_build(src, out, include=build.CSRC, flags=()):
+    """Start nvcc on src into the shared library out; returns the process
+    and its log path."""
+    log = out.with_suffix(".log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, *flags, "-I", str(include),
+             "-o", str(out), str(src)], stdout=f, stderr=subprocess.STDOUT)
+    return proc, log
+
+
+def wait_all(jobs):
+    """jobs: name -> (process, log). Raises with the log of any failure."""
+    for name, (proc, log) in jobs.items():
+        if proc.wait() != 0:
+            raise RuntimeError("nvcc failed on %s:\n%s" % (name,
+                                                            log.read_text()))
+
+
+def sass_functions(so):
+    """Each kernel's SASS instructions in a library (cuobjdump -sass), by its
+    (mangled) function name: a list of (address, opcode, branch target or
+    None)."""
+    cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = {}
+    for chunk in text.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        funcs[name] = [
+            (int(addr, 16), op, int(target, 16) if target else None)
+            for addr, op, target in re.findall(
+                r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                r"([A-Z][A-Z0-9_.]*)(?:\s+(?:0x)?([0-9a-f]+)\s*;)?", chunk)]
+    return funcs
+
+
+def kernel_sass(funcs, kernel):
+    """The instructions of the one function named `kernel` (mangled or
+    not)."""
+    found = [f for name, f in funcs.items()
+             if re.search(r"\d%s[A-Z]" % kernel, name) or name == kernel]
+    if len(found) != 1:
+        raise RuntimeError("%d SASS functions for %s among %s"
+                           % (len(found), kernel, sorted(funcs)))
+    return found[0]
+
+
+def opcodes(insts, loop=False):
+    """Opcode counts of a function, or (loop=True) of its longest loop: the
+    instructions from a backward branch's target to the branch."""
+    if loop:
+        spans = [(target, addr) for addr, op, target in insts
+                 if op == "BRA" and target is not None and target < addr]
+        if not spans:
+            raise RuntimeError("no loop in this SASS")
+        lo, hi = max(spans, key=lambda s: s[1] - s[0])
+        insts = [i for i in insts if lo <= i[0] <= hi]
+    return Counter(op for _, op, _ in insts)
+
+
+def summarize(counts):
+    wide = sum(n for op, n in counts.items() if op.startswith("IMAD.WIDE"))
+    imad = sum(n for op, n in counts.items() if op.startswith("IMAD")) - wide
+    alu = sum(n for op, n in counts.items() if op.split(".")[0] in ALU_OPS)
+    return {"imad_wide": wide, "imad": imad, "alu": alu,
+            "total": sum(counts.values())}
+
+
+def event_ms(fn, reps=3):
+    """Best of `reps` calls of fn by CUDA events, in ms."""
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def load(so, entries, argtypes):
+    lib = ctypes.CDLL(str(so))
+    for name in entries:
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def start_cores_build():
+    """Start nvcc on the field cores' chain kernels; returns (library,
+    (process, log))."""
+    PROBE_DIR.mkdir(parents=True, exist_ok=True)
+    src = PROBE_DIR / "cores.cu"
+    src.write_text(CORES_SRC)
+    so = PROBE_DIR / "libcores.so"
+    return so, nvcc_build(src, so)
+
+
+def run_cores(so, log, rng, card, iters=128):
+    names = ["%s_%s" % (c, op) for c in CORES for op in ("mul", "sqr")]
+    regs = build.parse_ptxas(log.read_text(), names)
+    lib = load(so, [n + "_launch" for n in names],
+               [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    blocks = BATCH // THREADS
+    funcs = sass_functions(so)
+    rows = {}
+    for core, (nlimbs, bound) in CORES.items():
+        init = rng.integers(0, bound, (BATCH, 2, nlimbs), dtype=np.uint64)
+        for op in ("mul", "sqr"):
+            name = "%s_%s" % (core, op)
+            io = torch.from_numpy(init.astype(np.uint32).view(np.int32)).cuda()
+            entry = getattr(lib, name + "_launch")
+
+            def run():
+                rc = entry(io.data_ptr(), iters, blocks, stream())
+                if rc != 0:
+                    raise RuntimeError("%s launch failed: %d" % (name, rc))
+
+            run()
+            ms = event_ms(run)
+            rows[name] = row = dict(
+                summarize(opcodes(kernel_sass(funcs, name), loop=True)),
+                registers=regs[name]["registers"], ms_per_op=ms / iters)
+            print("cores [%s]: %s %s, one trip of its chain: IMAD.WIDE %d, "
+                  "other IMAD %d, ALU %d, all %d SASS instructions | %d "
+                  "registers | %.4f ms per op over %d lanes" % (
+                      card, core, op, row["imad_wide"], row["imad"],
+                      row["alu"], row["total"], row["registers"],
+                      row["ms_per_op"], BATCH))
+    return rows
+
+
+# The checkout's ladder lane (ladder.cu's x25519_lane) in a kernel of the
+# probe's own, at the block size and __launch_bounds__ minimum that the
+# build defines.
+LADDER_VARIANT = r"""
+#include "ladder.cu"
+
+__global__ void __launch_bounds__(PROBE_THREADS, PROBE_MIN_BLOCKS)
+probe_ladder_kernel(uint8_t* out, const uint8_t* u, const uint8_t* k,
+                    const int32_t* zr, int64_t n) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  x25519_lane(out + 32 * lane, u + 32 * lane, k + 32 * lane,
+              zr ? zr + fe25519::NLIMBS * lane : nullptr);
+}
+
+extern "C" int probe_ladder_launch(void* out, const void* u, const void* k,
+                                   const void* zr, int64_t n, void* stream) {
+  probe_ladder_kernel<<<(unsigned)((n + PROBE_THREADS - 1) / PROBE_THREADS),
+                        PROBE_THREADS, 0, (cudaStream_t)stream>>>(
+      (uint8_t*)out, (const uint8_t*)u, (const uint8_t*)k,
+      (const int32_t*)zr, n);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def probe_ladders(variants, parent):
+    """Start one nvcc per ladder build: the checkout's ladder.cu as it
+    ships, each (threads, min_blocks) variant, and the parent's ladder.cu.
+    Returns name -> (library, launch entry, kernel, (process, log))."""
+    PROBE_DIR.mkdir(parents=True, exist_ok=True)
+    variant_src = PROBE_DIR / "ladder_variant.cu"
+    variant_src.write_text(LADDER_VARIANT)
+    jobs = {}
+    sources = [("shipped", build.CSRC)]
+    if parent is not None:
+        sources.append(("parent", Path(parent) / "curve25519_tpu_torch"
+                        "/ops/cuda/csrc"))
+    for name, csrc in sources:
+        so = PROBE_DIR / ("lib%s.so" % name)
+        jobs[name] = (so, "x25519_ladder_launch", "x25519_ladder_kernel",
+                      nvcc_build(csrc / "ladder.cu", so, include=csrc))
+    for threads, min_blocks in variants:
+        name = "ladder_t%d_m%d" % (threads, min_blocks)
+        so = PROBE_DIR / ("lib%s.so" % name)
+        flags = ["-DPROBE_THREADS=%d" % threads,
+                 "-DPROBE_MIN_BLOCKS=%d" % min_blocks]
+        jobs[name] = (so, "probe_ladder_launch", "probe_ladder_kernel",
+                      nvcc_build(variant_src, so, flags=flags))
+    return jobs
+
+
+def run_ladders(jobs, rng, card):
+    u = torch.from_numpy(rng.integers(0, 256, (BATCH, 32), np.uint8)).cuda()
+    k = rng.integers(0, 256, (BATCH, 32), np.uint8)
+    k[:, 0] &= 248
+    k[:, 31] = (k[:, 31] & 127) | 64
+    k = torch.from_numpy(k).cuda()
+    launches, rows, outs = {}, {}, {}
+    for name, (so, entry, kernel, (_, log)) in jobs.items():
+        info = build.parse_ptxas(log.read_text(), [kernel])
+        insts = kernel_sass(sass_functions(so), kernel)
+        rows[name] = dict(info[kernel],
+                          **summarize(opcodes(insts)),
+                          step=summarize(opcodes(insts, loop=True)), ms=[])
+        launches[name] = fn = getattr(ctypes.CDLL(str(so)), entry)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        outs[name] = out = torch.empty_like(u)
+        rc = fn(out.data_ptr(), u.data_ptr(), k.data_ptr(), None, BATCH,
+                stream())
+        if rc != 0:
+            raise RuntimeError("%s launch failed: %d" % (name, rc))
+        torch.cuda.synchronize()
+    first = next(iter(outs.values()))
+    for name, out in outs.items():
+        if not torch.equal(out, first):
+            raise RuntimeError("%s's bytes differ from %s's"
+                               % (name, next(iter(outs))))
+    order = list(launches)
+    for _ in range(ROUNDS):
+        for name in order + order[::-1]:
+            out, fn = outs[name], launches[name]
+            rows[name]["ms"].append(event_ms(lambda: fn(
+                out.data_ptr(), u.data_ptr(), k.data_ptr(), None, BATCH,
+                stream())))
+    for name, row in rows.items():
+        row["best_ms"] = min(row["ms"])
+        step = row["step"]
+        print("ladder [%s]: %s %d registers, spill %d/%d B | SASS IMAD.WIDE "
+              "%d, other IMAD %d, ALU %d, all %d; one ladder step (its loop) "
+              "%d, %d, %d, %d | best %.3f ms of %s, B=%d"
+              % (card, name, row["registers"], row["spill_store_bytes"],
+                 row["spill_load_bytes"], row["imad_wide"], row["imad"],
+                 row["alu"], row["total"], step["imad_wide"], step["imad"],
+                 step["alu"], step["total"], row["best_ms"],
+                 ", ".join("%.3f" % t for t in row["ms"]), BATCH))
+    return rows
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="root of another checkout whose "
+                    "ladder.cu is timed beside this one's")
+    ap.add_argument("--variants", default="64:1,128:4",
+                    help="threads:min_blocks builds of this checkout's "
+                    "ladder lane")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("ladder_probe needs a CUDA card")
+    variants = [tuple(int(x) for x in v.split(":"))
+                for v in args.variants.split(",")]
+    card = card_line()
+    print(card)
+    rng = np.random.default_rng(25519)
+    t0 = time.perf_counter()
+    so, job = start_cores_build()
+    jobs = probe_ladders(variants, args.parent)
+    wait_all(dict(cores=job, **{n: j[3] for n, j in jobs.items()}))
+    print("probe builds: %.1f s wall" % (time.perf_counter() - t0))
+    cores = run_cores(so, job[1], rng, card)
+    ladders = run_ladders(jobs, rng, card)
+    print(json.dumps({"card": card, "batch": BATCH, "cores": cores,
+                      "ladders": ladders}))
+
+
+if __name__ == "__main__":
+    main()
