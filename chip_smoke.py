@@ -48,8 +48,10 @@ nothing of JAX or of the JAX package. Phases, each printing a line:
    bytes (over 8 SHA-512 blocks), valid and tampered;
 10. verify known answers: RFC 8032 TEST 1-3 and their tampered forms, the
    16 edge-encoding vectors of tests/test_edge_encodings.py rebuilt here on
-   Python integers (strict and not), and random lanes against an
-   independent Python-integer verify;
+   Python integers (strict and not; their Verify_Init held against the
+   plain version), and random lanes, through verify and through
+   verify_check of Verify_Init's contexts, against an independent
+   Python-integer verify;
 11. the verify paths at full size (262,144 distinct keys, 64-byte
    messages), each driven with the launch counts set to 0 just before it
    and read just after: verify_init, verify_check against that context,
@@ -1415,6 +1417,7 @@ def phase_verify_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
 
 def phase_verify_known_answers(dev, rng):
     from curve25519_tpu_torch.models import ed25519
+    from curve25519_tpu_torch.ops.cuda import verify_kernel as vk
 
     pk = torch.stack([hex_bytes(v[1], dev) for v in ED_VECS])
     sig = torch.stack([hex_bytes(v[3], dev) for v in ED_VECS])
@@ -1445,6 +1448,8 @@ def phase_verify_known_answers(dev, rng):
     msgs = torch.stack([torch.tensor(list(v[3]), dtype=torch.uint8)
                         for v in vecs]).to(dev)
     ctx = ed25519.verify_init(pks)
+    check(max_abs_err((ctx["planes"], ctx["ok"]), vk.verify_init_plain(pks))
+          == 0, "Verify_Init of the 16 edge vectors != plain")
     for strict in (False, True):
         want = [v[5 if strict else 4] for v in vecs]
         oracle = [oracle_ed25519_verify(v[2], v[1], v[3], strict)
@@ -1469,16 +1474,21 @@ def phase_verify_known_answers(dev, rng):
     sig[1, 2] ^= 1
     sig[2, 50] ^= 1
     got = ed25519.verify(sig, pk, msg).tolist()
+    got_ctx = ed25519.verify_check(ed25519.verify_init(pk), sig, msg).tolist()
     for i in range(ORACLE_LANES):
-        check(got[i] == oracle_ed25519_verify(
-            row_bytes(sig[i]), row_bytes(pk[i]), row_bytes(msg[i])),
-            "verify lane %d disagrees with the Python-integer verify" % i)
+        want = oracle_ed25519_verify(row_bytes(sig[i]), row_bytes(pk[i]),
+                                     row_bytes(msg[i]))
+        check(got[i] == want and got_ctx[i] == want, "verify lane %d (%s, "
+              "through Verify_Init's context %s) disagrees with the "
+              "Python-integer verify" % (i, got[i], got_ctx[i]))
     print("phase 10 verify known answers: RFC 8032 TEST 1-3 verify and "
           "their tampered R, S and messages do not (verify, verify_check, "
           "shared verify_check); the 16 edge vectors of "
           "tests/test_edge_encodings.py (strict and not) through verify, "
-          "verify_check, verify_tablefree and the Python-integer verify; "
-          "%d random lanes vs the Python-integer verify: ok" % ORACLE_LANES)
+          "verify_check, verify_tablefree and the Python-integer verify, "
+          "their Verify_Init byte-equal to plain; %d random lanes through "
+          "verify and verify_check vs the Python-integer verify: ok"
+          % ORACLE_LANES)
 
 
 def phase_verify_main(dev, rng, card, counts, bound, batch=MAIN_BATCH):
@@ -2088,6 +2098,10 @@ def main():
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None,
             "registers": max(build_info[k]["registers"] for k in entries),
+            "spill_store_bytes": max(build_info[k]["spill_store_bytes"]
+                                     for k in entries),
+            "stack_bytes": max(build_info[k]["stack_bytes"]
+                               for k in entries),
         })
     print("chip_smoke wall time: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 // fe25519_wide.cuh -- field arithmetic mod p = 2^255 - 19 for one lane on
 // 32x32->64 products (`IMAD.WIDE.U32` on sm_90a), limbs in registers.
 //
-// The ladder kernel's field core (csrc/ladder.cu). fe25519.cuh keeps the
+// The field core of the ladder (csrc/ladder.cu) and of Verify_Init
+// (csrc/verify.cu, through edwards25519_wide.cuh). fe25519.cuh keeps the
 // reference's 20 x 13-bit radix, which exists only because the TPU has no
 // 64-bit multiplier; this core uses the card's 32x32->64 multiply instead:
 // ten unsigned 32-bit limbs in radix 2^25.5 (the ref10 / donna-c32 layout),
@@ -20,7 +21,11 @@
 // The ladder and the inversion only ever add or subtract outputs of mul,
 // sqr, mul_small_add or from_bytes, and the proof shows that, under these
 // bounds, no 32-bit pre-scaled operand (19g, 38f, 2f) and no 64-bit column
-// or carry overflows, and that sub never goes below zero.
+// or carry overflows, and that sub never goes below zero. The Edwards
+// formulas (edwards25519_wide.cuh) also add to negations and subtract from
+// them: neg of TIGHT limbs stays below 2p digit by digit, and weak_carry
+// brings limbs below 2^31 back to TIGHT; the proof models those formulas op
+// by op too, and shows where a sub of a LOOSE subtrahend cannot wrap.
 //
 // Constant time: no branch and no index depends on a limb value. Every
 // loop has static bounds and is fully unrolled (the inversion's squaring
@@ -106,6 +111,15 @@ FE_HD Fe sub(const Fe& x, const Fe& y) {
   return r;
 }
 
+// 2p - y: non-negative and below 2p digit by digit for a TIGHT y (the
+// negation of 0 is 2p, which canon takes to 0).
+FE_HD Fe neg(const Fe& y) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < NLIMBS; i++) r.v[i] = two_p(i) - y.v[i];
+  return r;
+}
+
 // One carry of 64-bit column i into column i + 1 (column 9's, times 19,
 // into column 0: 2^255 = 19 mod p).
 FE_HD void carry_col(uint64_t (&h)[NLIMBS], int i) {
@@ -132,6 +146,28 @@ FE_HD Fe reduce_cols(uint64_t (&h)[NLIMBS]) {
   Fe r;
 #pragma unroll
   for (int i = 0; i < NLIMBS; i++) r.v[i] = (uint32_t)h[i];
+  return r;
+}
+
+// Limbs below 2^31 -> TIGHT limbs of the same value: reduce_cols's twelve
+// carries in 32 bits.
+FE_HD Fe weak_carry(const Fe& x) {
+  uint32_t h[NLIMBS];
+#pragma unroll
+  for (int i = 0; i < NLIMBS; i++) h[i] = x.v[i];
+#pragma unroll
+  for (int k = 0; k < 12; k++) {
+    const int i = carry_order(k);
+    const uint32_t c = h[i] >> width(i);
+    h[i] &= mask(i);
+    if (i == NLIMBS - 1)
+      h[0] += 19 * c;
+    else
+      h[i + 1] += c;
+  }
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < NLIMBS; i++) r.v[i] = h[i];
   return r;
 }
 
@@ -222,12 +258,12 @@ FE_HD Fe sqr_times(Fe x, int n) {
   return x;
 }
 
-// 1/x = x^(p-2) (0 for x = 0): 254 squarings and 11 multiplies, the DJB
-// chain of fe25519::inv.
-FE_HD Fe inv(const Fe& x) {
+// x^(2^250 - 1), with x^11 in x11: the shared prefix of the p - 2 and
+// (p - 5) / 8 chains (fe25519::chain_2_250).
+FE_HD Fe chain_2_250(const Fe& x, Fe& x11) {
   const Fe x2 = sqr(x);
   const Fe x9 = mul(sqr(sqr(x2)), x);
-  const Fe x11 = mul(x9, x2);
+  x11 = mul(x9, x2);
   const Fe x31 = mul(sqr(x11), x9);            // 2^5 - 1
   Fe t = mul(sqr_times(x31, 5), x31);          // 2^10 - 1
   const Fe x10 = t;
@@ -237,8 +273,22 @@ FE_HD Fe inv(const Fe& x) {
   const Fe x50 = t;
   t = mul(sqr_times(t, 50), t);                // 2^100 - 1
   t = mul(sqr_times(t, 100), t);               // 2^200 - 1
-  t = mul(sqr_times(t, 50), x50);              // 2^250 - 1
+  return mul(sqr_times(t, 50), x50);           // 2^250 - 1
+}
+
+// 1/x = x^(p-2) (0 for x = 0): 254 squarings and 11 multiplies, the DJB
+// chain of fe25519::inv.
+FE_HD Fe inv(const Fe& x) {
+  Fe x11;
+  const Fe t = chain_2_250(x, x11);
   return mul(sqr_times(t, 5), x11);            // (2^250 - 1) * 2^5 + 11
+}
+
+// x^(2^252 - 3) = x^((p - 5) / 8) (fe25519::pow2523).
+FE_HD Fe pow2523(const Fe& x) {
+  Fe x11;
+  const Fe t = chain_2_250(x, x11);
+  return mul(sqr_times(t, 2), x);              // (2^250 - 1) * 4 + 1
 }
 
 // Sequential carries of limbs 0..8 into their next limb (32-bit).
@@ -275,14 +325,50 @@ FE_HD Fe canon(const Fe& x) {
   return r;
 }
 
-// 32 little-endian bytes -> TIGHT limbs of bits 0..254 (bit 255 is not
-// read), NOT reduced mod p: a u in [p, 2^255) stays as it is.
-FE_HD Fe from_bytes(const uint8_t* b) {
-  uint32_t w[8];
+// 1 where x == 0 (mod p), else 0, for LOOSE (or TIGHT) limbs.
+FE_HD uint32_t is_zero(const Fe& x) {
+  const Fe c = canon(x);
+  uint32_t acc = 0;
 #pragma unroll
-  for (int k = 0; k < 8; k++)
-    w[k] = (uint32_t)b[4 * k] | (uint32_t)b[4 * k + 1] << 8 |
-           (uint32_t)b[4 * k + 2] << 16 | (uint32_t)b[4 * k + 3] << 24;
+  for (int i = 0; i < NLIMBS; i++) acc |= c.v[i];
+  return acc == 0;
+}
+
+// A constant's canonical limbs.
+FE_HD Fe fe_const(const uint32_t (&t)[NLIMBS]) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < NLIMBS; i++) r.v[i] = t[i];
+  return r;
+}
+
+// sqrt(-1) mod p (config.SQRT_M1).
+FE_HD Fe sqrt_m1() {
+  constexpr uint32_t t[NLIMBS] = {34513072, 25610706, 9377949,  3500415,  12389472,
+                                  33281959, 41962654, 31548777, 326685,   11406482};
+  return fe_const(t);
+}
+
+// x = sqrt(u/v) where u/v is a square, with ok = 1 there and 0 elsewhere,
+// for LOOSE u and v (fe25519::sqrt_ratio, the same ops in the same order):
+// x = u v^3 (u v^7)^((p-5)/8), then the sqrt(-1) fix-up, both checks by
+// is_zero. u is carried to TIGHT first, for the checks' subtractions.
+FE_HD Fe sqrt_ratio(const Fe& u_in, const Fe& v, uint32_t& ok) {
+  const Fe u = weak_carry(u_in);
+  const Fe v2 = sqr(v);
+  const Fe v3 = mul(v2, v);
+  const Fe a = mul(u, v3);                     // u v^3
+  const Fe b = mul(a, sqr(v2));                // u v^7
+  Fe x = mul(pow2523(b), a);
+  const uint32_t good = is_zero(sub(mul(sqr(x), v), u));
+  x = select(good, x, mul(x, sqrt_m1()));
+  ok = good | is_zero(sub(mul(sqr(x), v), u));
+  return x;
+}
+
+// Eight little-endian 32-bit words -> TIGHT limbs of bits 0..254 (bit 255
+// is not read), NOT reduced mod p.
+FE_HD Fe from_words(const uint32_t (&w)[8]) {
   Fe r;
 #pragma unroll
   for (int i = 0; i < NLIMBS; i++) {
@@ -294,10 +380,20 @@ FE_HD Fe from_bytes(const uint8_t* b) {
   return r;
 }
 
-// The canonical value's 32 little-endian bytes (bit 255 clear).
-FE_HD void to_bytes(uint8_t* out, const Fe& x) {
-  const Fe c = canon(x);
+// 32 little-endian bytes -> TIGHT limbs of bits 0..254 (bit 255 is not
+// read), NOT reduced mod p: a u in [p, 2^255) stays as it is.
+FE_HD Fe from_bytes(const uint8_t* b) {
   uint32_t w[8];
+#pragma unroll
+  for (int k = 0; k < 8; k++)
+    w[k] = (uint32_t)b[4 * k] | (uint32_t)b[4 * k + 1] << 8 |
+           (uint32_t)b[4 * k + 2] << 16 | (uint32_t)b[4 * k + 3] << 24;
+  return from_words(w);
+}
+
+// Limbs with every limb < 2^width(i) (canon's) -> their value as eight
+// little-endian 32-bit words.
+FE_HD void to_words(uint32_t (&w)[8], const Fe& c) {
 #pragma unroll
   for (int k = 0; k < 8; k++) w[k] = 0;
 #pragma unroll
@@ -306,8 +402,49 @@ FE_HD void to_bytes(uint8_t* out, const Fe& x) {
     w[k] |= c.v[i] << s;
     if (s + width(i) > 32) w[k + 1] |= c.v[i] >> (32 - s);
   }
+}
+
+// The canonical value's 32 little-endian bytes (bit 255 clear).
+FE_HD void to_bytes(uint8_t* out, const Fe& x) {
+  uint32_t w[8];
+  to_words(w, canon(x));
 #pragma unroll
   for (int j = 0; j < 32; j++) out[j] = (uint8_t)(w[j / 4] >> (8 * (j % 4)));
+}
+
+// ---------------------------------------------------------------------------
+// The 13-bit radix where it crosses a kernel: fe25519.cuh's twenty limbs,
+// limb k holding bits [13k, 13k + 13) (the q_table's int8 planes).
+// ---------------------------------------------------------------------------
+constexpr int kLimbs13 = 20;
+
+// Canonical limbs (canon's) -> the twenty 13-bit limbs of the same value,
+// each in [0, 2^13): fe25519's canonical limbs.
+FE_HD void to_limbs13(int32_t (&out)[kLimbs13], const Fe& c) {
+  uint32_t w[8];
+  to_words(w, c);
+#pragma unroll
+  for (int k = 0; k < kLimbs13; k++) {
+    const int j = 13 * k / 32, s = 13 * k % 32;
+    uint32_t t = w[j] >> s;
+    if (s + 13 > 32 && j + 1 < 8) t |= w[j + 1] << (32 - s);
+    out[k] = (int32_t)(t & 0x1FFF);
+  }
+}
+
+// Twenty 13-bit limbs, each in [0, 2^13), of a value below 2^255 (such as
+// fe25519's canonical limbs) -> TIGHT limbs of that value.
+FE_HD Fe from_limbs13(const int32_t (&limb)[kLimbs13]) {
+  uint32_t w[8];
+#pragma unroll
+  for (int k = 0; k < 8; k++) w[k] = 0;
+#pragma unroll
+  for (int k = 0; k < kLimbs13; k++) {
+    const int j = 13 * k / 32, s = 13 * k % 32;
+    w[j] |= (uint32_t)limb[k] << s;
+    if (s + 13 > 32 && j + 1 < 8) w[j + 1] |= (uint32_t)limb[k] >> (32 - s);
+  }
+  return from_words(w);
 }
 
 }  // namespace fe_wide

@@ -206,14 +206,18 @@ extern "C" int fe25519_op_host(int op, int32_t* out, const int32_t* x,
 
 enum WideOp {
   WIDE_ADD, WIDE_SUB, WIDE_MUL, WIDE_SQR, WIDE_MUL_SMALL_ADD, WIDE_SELECT,
-  WIDE_CANON, WIDE_INV, WIDE_TO_BYTES, WIDE_FROM_BYTES
+  WIDE_CANON, WIDE_INV, WIDE_TO_BYTES, WIDE_FROM_BYTES, WIDE_NEG,
+  WIDE_WEAK_CARRY, WIDE_POW2523, WIDE_IS_ZERO, WIDE_SQRT_RATIO,
+  WIDE_TO_LIMBS13, WIDE_FROM_LIMBS13
 };
 
 // One op of the wide core (fe25519_wide.cuh) over n lanes. x, y, out:
 // [n, 10] uint32 limbs, except that WIDE_TO_BYTES writes and
-// WIDE_FROM_BYTES reads [n, 32] bytes. WIDE_MUL_SMALL_ADD computes
-// x + A24 * y; WIDE_SELECT gives x on odd lanes and y on even ones.
-// Returns 0, or -1 for an unknown op.
+// WIDE_FROM_BYTES reads [n, 32] bytes, WIDE_TO_LIMBS13 writes and
+// WIDE_FROM_LIMBS13 reads [n, 20] int32 13-bit limbs, WIDE_IS_ZERO writes
+// [n, 1] and WIDE_SQRT_RATIO [n, 11] (sqrt_ratio(x, y)'s limbs, then ok).
+// WIDE_MUL_SMALL_ADD computes x + A24 * y; WIDE_SELECT gives x on odd lanes
+// and y on even ones. Returns 0, or -1 for an unknown op.
 extern "C" int fe_wide_op_host(int op, void* out, const void* x,
                                const void* y, int64_t n) {
   using namespace fe_wide;
@@ -224,6 +228,10 @@ extern "C" int fe_wide_op_host(int op, void* out, const void* x,
     Fe a, b, r;
     if (op == WIDE_FROM_BYTES) {
       r = from_bytes((const uint8_t*)x + 32 * lane);
+    } else if (op == WIDE_FROM_LIMBS13) {
+      int32_t limb[kLimbs13];
+      for (int k = 0; k < kLimbs13; k++) limb[k] = ((const int32_t*)x)[kLimbs13 * lane + k];
+      r = from_limbs13(limb);
     } else {
       for (int i = 0; i < NLIMBS; i++) {
         a.v[i] = xl[NLIMBS * lane + i];
@@ -238,9 +246,28 @@ extern "C" int fe_wide_op_host(int op, void* out, const void* x,
         case WIDE_SELECT: r = select((uint32_t)(lane & 1), a, b); break;
         case WIDE_CANON: r = canon(a); break;
         case WIDE_INV: r = inv(a); break;
+        case WIDE_NEG: r = neg(a); break;
+        case WIDE_WEAK_CARRY: r = weak_carry(a); break;
+        case WIDE_POW2523: r = pow2523(a); break;
         case WIDE_TO_BYTES:
           to_bytes((uint8_t*)out + 32 * lane, a);
           continue;
+        case WIDE_IS_ZERO:
+          limbs_out[lane] = is_zero(a);
+          continue;
+        case WIDE_SQRT_RATIO: {
+          uint32_t ok;
+          r = sqrt_ratio(a, b, ok);
+          for (int i = 0; i < NLIMBS; i++) limbs_out[11 * lane + i] = r.v[i];
+          limbs_out[11 * lane + NLIMBS] = ok;
+          continue;
+        }
+        case WIDE_TO_LIMBS13: {
+          int32_t limb[kLimbs13];
+          to_limbs13(limb, a);
+          for (int k = 0; k < kLimbs13; k++) ((int32_t*)out)[kLimbs13 * lane + k] = limb[k];
+          continue;
+        }
         default: return -1;
       }
     }

@@ -1,6 +1,8 @@
-// verify_lane.cuh -- the per-lane code of Ed25519 verification, shared by
-// verify.cu (Verify_Init), poly.cu (the double-scalar multiply) and
-// oneshot.cu (the two fused in one kernel).
+// verify_lane.cuh -- the per-lane code of Ed25519 verification on the
+// 13-bit core, shared by poly.cu (the double-scalar multiply) and oneshot.cu
+// (Verify_Init and the double-scalar multiply fused in one kernel), and the
+// layout of the q_table's int8 planes, which verify.cu (Verify_Init on the
+// wide core, fe25519_wide.cuh) writes too.
 //
 // Verify_Init (build_qtable): decode the 32 pk bytes (bit 255 is the parity,
 // flipped for -Q; y >= p is taken mod p), decompress x with the sqrt ratio,
@@ -12,16 +14,15 @@
 //
 // Both are templates over where the q_table lives (a policy with
 // store(i, entry), prefetch(i), read(i, more) and add(p, i, more), which
-// returns p + entry i): PlaneRows below keeps the
-// JAX context's int8 planes, [16, 160] per lane: per entry the 80 canonical
-// limbs of (ypx, ymx, t2d, z2), first their low 7 bits (80 bytes), then their
-// high 6 bits (80 bytes); a limb is lo + (hi << 7). Read as 32-bit words, an
-// entry is 40 words and starts on a 16-byte boundary. Verify_Init writes each
-// entry as soon as it is made and reads earlier entries back for the
-// subset-sum adds; the entries are canonical, so they equal (mod p) the weak
-// limbs the TPU kernel added, and every later result is the same field
-// element. The base table of s is read through a policy too (PlainPa: the
-// packed fold-8 table, load_pa).
+// returns p + entry i; oneshot.cu's keeps int16 limbs in a scratch row).
+// PlaneRows below reads the JAX context's int8 planes, [16, 160] per lane:
+// per entry the 80 canonical limbs of (ypx, ymx, t2d, z2), first their low
+// 7 bits (80 bytes), then their high 6 bits (80 bytes); a limb is
+// lo + (hi << 7). Read as 32-bit words, an entry is 40 words and starts on
+// a 16-byte boundary (store_limbs writes one coordinate). The entries are
+// canonical, so they equal (mod p) the weak limbs the TPU kernel added, and
+// every later result is the same field element. The base table of s is read
+// through a policy too (PlainPa: the packed fold-8 table, load_pa).
 //
 // Table reads: verify works on public data (the signature, the key, the
 // message), so both tables are read at an address that depends on the digit
@@ -51,28 +52,22 @@ FE_HD Pe to_pe(const Ext& p) {
   return {add(p.y, p.x), sub(p.y, p.x), mul(p.t, ed_2d()), add(p.z, p.z)};
 }
 
-// Coordinate c of an entry: canonical limbs split into the lo and hi planes.
-FE_HD void store_coord(uint32_t* entry, int c, const Fe& x) {
-  const Fe d = canon(x);
+// Coordinate c of an entry from its 20 canonical limbs, split into the lo
+// and hi planes (verify.cu's Verify_Init on the wide core converts to these
+// limbs first, fe_wide::to_limbs13).
+FE_HD void store_limbs(uint32_t* entry, int c, const int32_t (&limb)[NLIMBS]) {
 #pragma unroll
   for (int k = 0; k < NLIMBS / 4; k++) {
     uint32_t lo = 0, hi = 0;
 #pragma unroll
     for (int b = 0; b < 4; b++) {
-      const uint32_t limb = (uint32_t)d.v[4 * k + b];
-      lo |= (limb & 0x7F) << (8 * b);
-      hi |= (limb >> 7) << (8 * b);
+      const uint32_t l = (uint32_t)limb[4 * k + b];
+      lo |= (l & 0x7F) << (8 * b);
+      hi |= (l >> 7) << (8 * b);
     }
     entry[5 * c + k] = lo;
     entry[20 + 5 * c + k] = hi;
   }
-}
-
-FE_HD void store_entry(uint32_t* entry, const Pe& e) {
-  store_coord(entry, 0, e.ypx);
-  store_coord(entry, 1, e.ymx);
-  store_coord(entry, 2, e.t2d);
-  store_coord(entry, 3, e.z2);
 }
 
 // The 80 limbs (ypx, ymx, t2d, z2) as an entry.
@@ -135,13 +130,12 @@ struct PlaneCoord {
   }
 };
 
-// A q_table of int8 planes at qt, read where it is used: Verify_Init's
-// subset-sum adds (verify_init_kernel) read whole entries, the double-scalar
-// multiply (poly_kernel: the lane's table in device memory; poly_shared_kernel:
-// one table in shared memory) a coordinate at a time.
+// A q_table of int8 planes at qt, read where the double-scalar multiply
+// uses it (poly_kernel: the lane's table in device memory;
+// poly_shared_kernel: one table in shared memory): its first entry whole,
+// then a coordinate at a time.
 struct PlaneRows {
   uint32_t* qt;
-  FE_HD void store(int i, const Pe& e) { store_entry(qt + i * kQtEntryWords, e); }
   FE_HD void prefetch(int) {}
   FE_HD Pe read(int i, bool) { return load_entry(qt + i * kQtEntryWords); }
   FE_HD Ext add(const Ext& p, int i, bool) {

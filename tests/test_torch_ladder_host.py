@@ -12,13 +12,15 @@ code is held, exactly, against:
 - the plain ladder (models/montgomery.point_multiply) and the Python oracle
   (curve25519_tpu.refmodel), byte for byte.
 
-The ladder kernel runs on its own core, ops/cuda/csrc/fe25519_wide.cuh (ten
-32-bit limbs in radix 2^25.5). Its checks are ``_check_wide_*`` helpers
-inside the tests below: an executable interval proof of its limb bounds
-(in the manner of tests/test_bounds.py), each of its ops through
-``fe_wide_op_host`` against Python integers mod p, and the RFC 7748 5.2
-1,000-iteration vector through ``x25519_ladder_host``. None of them runs
-JAX.
+The ladder kernel and the Verify_Init kernel run on another core,
+ops/cuda/csrc/fe25519_wide.cuh (ten 32-bit limbs in radix 2^25.5), the
+latter through the Edwards formulas of csrc/edwards25519_wide.cuh. Its
+checks are ``_check_wide_*`` helpers inside the tests below: an executable
+interval proof of its limb bounds (in the manner of tests/test_bounds.py)
+over one ladder step and the Verify_Init lane's ops, each of its ops
+through ``fe_wide_op_host`` against Python integers mod p, and the RFC
+7748 5.2 1,000-iteration vector through ``x25519_ladder_host``. None of
+them runs JAX.
 
 The port's host core (curve25519_tpu_torch/native, a byte-equal copy of the
 JAX package's ref25519.cpp built with g++) is held against the JAX
@@ -68,7 +70,12 @@ EDGE_U = [0, 1, P, P + 1, 2**255 - 1, 1 | 1 << 255]
 # the WideOp enum of ladder.cu
 WIDE_OPS = {"add": 0, "sub": 1, "mul": 2, "sqr": 3, "mul_small_add": 4,
             "select": 5, "canon": 6, "inv": 7, "to_bytes": 8,
-            "from_bytes": 9}
+            "from_bytes": 9, "neg": 10, "weak_carry": 11, "pow2523": 12,
+            "is_zero": 13, "sqrt_ratio": 14, "to_limbs13": 15,
+            "from_limbs13": 16}
+# the row width of each wide op's output, where it is not 10 limbs
+WIDE_OUT = {"to_bytes": 32, "is_zero": 1, "sqrt_ratio": 11,
+            "to_limbs13": 20}
 # fe25519_wide.cuh: limb i holds W_WIDTH[i] bits from bit W_OFF[i]
 W_WIDTH = [26 - (i & 1) for i in range(10)]
 W_OFF = [26 * ((i + 1) // 2) + 25 * (i // 2) for i in range(11)]
@@ -185,7 +192,7 @@ def test_inv_equals_twin_and_fe_tile(lib, rng, tmp_path):
     np.testing.assert_array_equal(got, untile(ft.t_inv(tile(x))))
     _check_concurrent_host_builds(tmp_path)
     _check_wide_core_bounds()
-    _check_wide_ops(lib, rng, ("inv",))
+    _check_wide_ops(lib, rng, ("inv", "pow2523", "sqrt_ratio"))
 
 
 # builds the host library into argv[1] with argv[2:] added to g++'s flags;
@@ -263,9 +270,11 @@ def test_from_bytes_equals_twin_and_sc_tile(lib, rng):
 # ---------------------------------------------------------------------------
 # the wide ops checked beside each parametrized case of the 13-bit core
 _WIDE_OF = {("add", "sub"): ("add", "sub"),
-            ("neg", "mul_small_add"): ("mul_small_add", "select"),
+            ("neg", "mul_small_add"): ("mul_small_add", "select", "neg",
+                                       "weak_carry"),
             ("mul", "sqr"): ("mul", "sqr"),
-            ("canon", "to_bytes"): ("canon", "to_bytes")}
+            ("canon", "to_bytes"): ("canon", "to_bytes", "is_zero",
+                                    "to_limbs13", "from_limbs13")}
 
 
 def _u(lo, hi, bits):
@@ -311,17 +320,37 @@ def _w_sub(x, y):
     return out
 
 
-def _w_reduce(h):
-    """reduce_cols: twelve carries of 64-bit columns, in carry_order."""
+def _w_carries(h, bits):
+    """reduce_cols's twelve carries, in carry_order, on `bits`-bit limbs."""
     h = list(h)
     for i in (0, 4, 1, 5, 2, 6, 3, 7, 4, 8, 9, 0):
         c = _ishr(h[i], W_WIDTH[i])
         h[i] = _imask(h[i], W_WIDTH[i])
         if i == 9:
-            h[0] = _iadd(h[0], _imul(c, _k(19), 64), 64)
+            h[0] = _iadd(h[0], _imul(c, _k(19), bits), bits)
         else:
-            h[i + 1] = _iadd(h[i + 1], c, 64)
+            h[i + 1] = _iadd(h[i + 1], c, bits)
     return [_u(*v, 32) for v in h]
+
+
+def _w_reduce(h):
+    """reduce_cols: the carries of 64-bit columns."""
+    return _w_carries(h, 64)
+
+
+def _w_weak_carry(x):
+    """weak_carry: the same carries in 32 bits."""
+    return _w_carries(x, 32)
+
+
+def _w_neg(y):
+    """2p - y in uint32 (sub from 0): must not wrap."""
+    return _w_sub([_k(0)] * 10, y)
+
+
+def _w_union(*vs):
+    return [(min(v[0] for v in col), max(v[1] for v in col))
+            for col in zip(*vs)]
 
 
 def _w_mul(x, y):
@@ -391,6 +420,118 @@ def _within(v, bounds):
     return all(0 <= lo and hi < b for (lo, hi), b in zip(v, bounds))
 
 
+def _w_sqr_times(x, n):
+    for _ in range(n):
+        x = _w_sqr(x)
+    return x
+
+
+def _w_pow2523(x):
+    """pow2523: chain_2_250, then two squarings and a multiply."""
+    x2 = _w_sqr(x)
+    x9 = _w_mul(_w_sqr(_w_sqr(x2)), x)
+    x11 = _w_mul(x9, x2)
+    x31 = _w_mul(_w_sqr(x11), x9)
+    t = x10 = _w_mul(_w_sqr_times(x31, 5), x31)
+    t = _w_mul(_w_sqr_times(t, 10), t)
+    t = _w_mul(_w_sqr_times(t, 20), t)
+    t = x50 = _w_mul(_w_sqr_times(t, 10), x10)
+    t = _w_mul(_w_sqr_times(t, 50), t)
+    t = _w_mul(_w_sqr_times(t, 100), t)
+    t = _w_mul(_w_sqr_times(t, 50), x50)
+    return _w_mul(_w_sqr_times(t, 2), x)
+
+
+def _w_sqrt_ratio(u, v):
+    """sqrt_ratio's ops in order; the checks' subtrahend must be TIGHT."""
+    u = _w_weak_carry(u)
+    assert _within(u, W_TIGHT), u
+    v2 = _w_sqr(v)
+    a = _w_mul(u, _w_mul(v2, v))
+    b = _w_mul(a, _w_sqr(v2))
+    x = _w_mul(_w_pow2523(b), a)
+    _w_canon(_w_sub(_w_mul(_w_sqr(x), v), u))              # is_zero
+    x = _w_union(x, _w_mul(x, _W_CONST))                   # select
+    _w_canon(_w_sub(_w_mul(_w_sqr(x), v), u))
+    return x
+
+
+def _w_calculate_x(y):
+    """calculate_x: the canonical root or its negation (select)."""
+    y2 = _w_sqr(y)
+    u = _w_sub(y2, _W_ONE)
+    v = _w_add(_w_mul(y2, _W_CONST), _W_ONE)
+    xc = _w_canon(_w_sqrt_ratio(u, v))
+    return _w_union(xc, _w_neg(xc))
+
+
+def _w_dbl(p):
+    """ed_wide::dbl; every multiply's operands fit the proof of mul."""
+    x, y, z, _ = p
+    a, b, c = _w_sqr(x), _w_sqr(y), _w_sqr(z)
+    c = _w_add(c, c)
+    d = _w_neg(a)
+    h = _w_weak_carry(_w_sub(d, b))
+    g = _w_add(d, b)
+    f = _w_weak_carry(_w_sub(g, c))         # c LOOSE: g's digits keep it >= 0
+    e = _w_add(_w_sqr(_w_add(x, y)), h)
+    return _w_mul(e, f), _w_mul(h, g), _w_mul(g, f), _w_mul(e, h)
+
+
+def _w_add_pe(p, q):
+    """ed_wide::add_pe; p = (ypx, ymx, t, z), q = (ypx, ymx, t2d, z2)."""
+    a = _w_mul(p[1], q[1])
+    b = _w_mul(p[0], q[0])
+    c, d = _w_mul(p[2], q[2]), _w_mul(p[3], q[3])
+    e, h, f, g = _w_sub(b, a), _w_add(b, a), _w_sub(d, c), _w_add(d, c)
+    return _w_mul(e, f), _w_mul(h, g), _w_mul(g, f), _w_mul(e, h)
+
+
+def _w_to_pe(p):
+    """ed_wide::to_pe, then canon of each coordinate (the planes' store)."""
+    x, y, z, t = p
+    pe = (_w_add(y, x), _w_sub(y, x), _w_mul(t, _W_CONST), _w_add(z, z))
+    return [_w_canon(c) for c in pe]
+
+
+# a canonical constant (d, 2d, sqrt(-1), 1/2, 1/(2d)) and one, as limb
+# intervals
+_W_CONST = [(0, (1 << w) - 1) for w in W_WIDTH]
+_W_ONE = [(1, 1)] + [(0, 0)] * 9
+
+
+def _check_wide_edwards_bounds():
+    """The Verify_Init lane of verify.cu on interval limbs: decode (y from
+    from_bytes, x from calculate_x, the sqrt ratio and the pow2523 chain
+    included), the start point's doubling and PE form, a doubling and to_pe
+    on TIGHT state, and a subset-sum add of two entries read back through
+    from_limbs13, the base's Z and T a product of its entry. Every output
+    of a multiply is TIGHT, so the state stays TIGHT, and the stores' canon
+    takes each coordinate below 2^width(i), which is what to_limbs13
+    reads."""
+    canonical = [(0, (1 << w) - 1) for w in W_WIDTH]
+    tight = [(0, b - 1) for b in W_TIGHT]
+    y = canonical                                           # from_bytes
+    x = _w_calculate_x(y)
+    below_2p = [hi + 1 for _, hi in _w_neg([_k(0)] * 10)]   # 2p's digits
+    assert _within(x, below_2p), x
+    start = (x, y, _W_ONE, _w_mul(x, y))
+    state = (tight,) * 4
+    entry = canonical                                       # from_limbs13
+    for p in (start, state):
+        for out in _w_dbl(p):
+            assert _within(out, W_TIGHT), out
+        for c in _w_to_pe(p):
+            assert _within(c, [1 << w for w in W_WIDTH]), c
+    z = t = _w_mul(entry, _W_CONST)                         # BaseEntry's
+    for out in _w_add_pe((entry, entry, t, z), (entry,) * 4):
+        assert _within(out, W_TIGHT), out
+    # the ops on their own: neg of TIGHT stays below 2p digit by digit,
+    # weak_carry takes limbs below 2^31 to TIGHT
+    assert _within(_w_neg(tight), below_2p)
+    assert _within(_w_weak_carry([(0, (1 << 31) - 1)] * 10), W_TIGHT)
+
+
 def _check_wide_core_bounds():
     """The executable bounds proof of fe25519_wide.cuh. Every 32-bit
     operand and sum and every 64-bit column, partial sum and carry of each
@@ -423,6 +564,7 @@ def _check_wide_core_bounds():
     for out in (_w_sqr(_w_add(da, cb)), _w_mul(u, _w_sqr(_w_sub(da, cb))),
                 _w_mul(aa, bb), _w_mul(e, _w_msa(aa, e))):
         assert _within(out, W_TIGHT), out
+    _check_wide_edwards_bounds()
 
 
 def _w_value(limbs):
@@ -448,8 +590,7 @@ def _w_inputs(rng, bounds, n):
 def wide_op(lib, name, x, y=None):
     x = np.ascontiguousarray(x)
     y = None if y is None else np.ascontiguousarray(y, np.uint32)
-    width = 32 if name == "to_bytes" else 10
-    out = np.zeros((len(x), width),
+    out = np.zeros((len(x), WIDE_OUT.get(name, 10)),
                    np.uint8 if name == "to_bytes" else np.uint32)
     rc = lib.fe_wide_op_host(WIDE_OPS[name], out.ctypes.data, x.ctypes.data,
                              None if y is None else y.ctypes.data, len(x))
@@ -457,11 +598,39 @@ def wide_op(lib, name, x, y=None):
     return out
 
 
+def _limbs13(value):
+    return [(value >> 13 * k) & 0x1FFF for k in range(20)]
+
+
+def _sqrt_ratio_int(u, v):
+    """fe25519::sqrt_ratio on Python integers: (x mod p, ok)."""
+    x = u * pow(v, 3, P) * pow(u * pow(v, 7, P), (P - 5) // 8, P) % P
+    good = (x * x * v - u) % P == 0
+    if not good:
+        x = x * pow(2, (P - 1) // 4, P) % P
+    return x, good or (x * x * v - u) % P == 0
+
+
+def _check_wide_conversions(lib, rng):
+    """to_limbs13 of canonical limbs and from_limbs13 of 13-bit canonical
+    limbs against the values' own digits, p - 1, 0 and 1 included."""
+    values = [int(v) for v in rng.integers(0, 2**63, 40)] + [
+        int.from_bytes(rng.bytes(32), "little") % P for _ in range(40)] + [
+        0, 1, P - 1, 2**254]
+    canon_rows = np.array([_w_limbs(v) for v in values], np.uint32)
+    got = wide_op(lib, "to_limbs13", canon_rows)
+    np.testing.assert_array_equal(got, [_limbs13(v) for v in values])
+    back = wide_op(lib, "from_limbs13", got.view(np.int32))
+    np.testing.assert_array_equal(back, canon_rows)
+
+
 def _check_wide_ops(lib, rng, names):
     """Each named op of the wide core through fe_wide_op_host against
     Python integers mod p, on random limbs and the invariant's extremes;
     outputs must also lie inside the invariant the proof states."""
     canon_bounds = [1 << w for w in W_WIDTH]
+    below_2p = [(2 << w) - 1 for w in W_WIDTH]     # 2p's digits, + 1
+    below_2p[0] = (1 << 27) - 37
     for name in names:
         if name == "from_bytes":
             b = rng.integers(0, 256, (40, 32), dtype=np.uint8)
@@ -473,14 +642,39 @@ def _check_wide_ops(lib, rng, names):
                 assert _w_value(row) == v and _within(
                     [(int(t), int(t)) for t in row], canon_bounds), name
             continue
-        ins = W_TIGHT if name in ("add", "sub") else W_LOOSE
-        x = _w_inputs(rng, ins, 4 if name == "inv" else 40)
+        if name in ("to_limbs13", "from_limbs13"):
+            _check_wide_conversions(lib, rng)
+            continue
+        ins = {"add": W_TIGHT, "sub": W_TIGHT, "neg": W_TIGHT,
+               "weak_carry": [1 << 31] * 10}.get(name, W_LOOSE)
+        x = _w_inputs(rng, ins, 4 if name in ("inv", "pow2523") else 40)
         y = _w_inputs(rng, ins, len(x) - 5)[::-1].copy()
+        if name == "is_zero":                     # 0 as 0, p and 2p
+            zeros = np.array([[0] * 10, _w_limbs(P),
+                              [b - 1 for b in below_2p]], np.uint32)
+            x, y = np.concatenate([x, zeros]), np.concatenate([y, zeros])
+        if name == "sqrt_ratio":                  # v = 0; u/v = v^2
+            y[1] = 0
+            vy = _w_value(y[2]) % P
+            x[2] = _w_limbs(pow(vy, 3, P))
         got = wide_op(lib, name, x, y)
         for lane, (row, a, b) in enumerate(zip(got, x, y)):
             va, vb = _w_value(a), _w_value(b)
             if name == "to_bytes":
                 assert row.tobytes() == (va % P).to_bytes(32, "little"), name
+                continue
+            if name == "is_zero":
+                assert row[0] == (va % P == 0), (name, lane)
+                assert lane < len(x) - 3 or row[0] == 1, lane
+                continue
+            if name == "sqrt_ratio":
+                want_x, want_ok = _sqrt_ratio_int(va % P, vb % P)
+                assert (_w_value(row[:10]) % P, bool(row[10])) == (
+                    want_x, want_ok), (name, lane)
+                assert _within([(int(t), int(t)) for t in row[:10]],
+                               W_TIGHT), (name, lane)
+                if lane in (1, 2):
+                    assert want_ok == (lane == 2 or va % P == 0), lane
                 continue
             want, bound = {
                 "add": (va + vb, W_LOOSE), "sub": (va - vb, W_LOOSE),
@@ -489,6 +683,9 @@ def _check_wide_ops(lib, rng, names):
                 "select": (va if lane & 1 else vb, W_LOOSE),
                 "canon": (va, canon_bounds),
                 "inv": (pow(va, P - 2, P), W_TIGHT),
+                "neg": (-va, below_2p),
+                "weak_carry": (va, W_TIGHT),
+                "pow2523": (pow(va, (P - 5) // 8, P), W_TIGHT),
             }[name]
             value = _w_value(row)
             assert value % P == want % P, (name, lane)

@@ -396,9 +396,10 @@ def test_ragged_equals_jax_sign_and_verify_ragged(monkeypatch):
 
 def test_host_kernels_equal_plain(lib, batch, digits):
     """verify.cu's and oneshot.cu's lane code built with g++: Verify_Init
-    (valid and invalid keys), the double-scalar multiply with per-lane and
-    shared q_tables, the one-shot kernel with its scratch layout, pow2523
-    and sqrt_ratio."""
+    on the wide core (valid and invalid keys, the edge vectors, random
+    keys), the double-scalar multiply with per-lane and shared q_tables, the
+    one-shot kernel (the 13-bit Verify_Init) with its scratch layout, and
+    the 13-bit pow2523 and sqrt_ratio."""
     pk = np.ascontiguousarray(batch[0])
     u, v = (np.ascontiguousarray(d) for d in digits)
     n = len(pk)
@@ -452,3 +453,20 @@ def test_host_kernels_equal_plain(lib, batch, digits):
     wx, wok = fe.sqrt_ratio(t(uu), t(vv))
     np.testing.assert_array_equal(sx, to_numpy(wx))
     np.testing.assert_array_equal(sok.astype(bool), to_numpy(wok))
+    _check_verify_init_host_random_keys(lib)
+
+
+def _check_verify_init_host_random_keys(lib):
+    """verify.cu's Verify_Init (the wide core) on 32 random keys from a
+    seeded generator, about half of them off the curve, and the all-0xFF
+    key: planes and flags equal to verify_init_plain's."""
+    pk = np.random.default_rng(10).integers(0, 256, (33, 32), dtype=np.uint8)
+    pk[32] = 0xFF
+    planes = np.zeros((len(pk), 16, 160), np.int8)
+    ok = np.zeros(len(pk), np.uint8)
+    lib.verify_init_host(planes.ctypes.data, ok.ctypes.data, pk.ctypes.data,
+                         len(pk))
+    want_planes, want_ok = verify_kernel.verify_init_plain(t(pk))
+    np.testing.assert_array_equal(planes, to_numpy(want_planes))
+    np.testing.assert_array_equal(ok.astype(bool), to_numpy(want_ok))
+    assert 8 <= ok[:32].sum() <= 24, ok

@@ -1,6 +1,8 @@
-"""Measure the X25519 ladder kernel and the field cores on one CUDA card.
+"""Measure the X25519 ladder and Verify_Init kernels and the field cores on
+one CUDA card.
 
     python3 tools/ladder_probe.py [--parent DIR] [--variants 64:1,128:4]
+                                  [--vinit-variants 128:3,64:6,256:2]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Prints one line per measurement and, last, one JSON object of them all;
@@ -13,7 +15,9 @@ builds into curve25519_tpu_torch/ops/cuda/_build/probe/ (git-ignored):
    reference library's portable core, written out here and nowhere else).
    For each op: the SASS opcodes of one trip of a chain kernel that does
    one op per trip (x, y = x * y, x; or x = x^2), ptxas's registers, and
-   the device time of one op per lane.
+   the device time of one op per lane. Also one Edwards doubling per trip
+   (P = 2P) on the 13-bit core (csrc/edwards25519.cuh) and on the wide core
+   (csrc/edwards25519_wide.cuh).
 2. Ladder builds: the checkout's csrc/ladder.cu as it ships; its lane
    function in a kernel of the probe's own at each `--variants`
    threads:min_blocks (block size and __launch_bounds__ minimum); and, with
@@ -23,6 +27,10 @@ builds into curve25519_tpu_torch/ops/cuda/_build/probe/ (git-ignored):
    all run on the same lanes, must return the same bytes, and are timed
    in turns (builds in order, then reversed, three times; each the best of
    3 launches by CUDA events).
+3. Verify_Init builds, the same way: the checkout's csrc/verify.cu, its
+   lane (verify.cu's verify_init_lane) at each `--vinit-variants`
+   threads:min_blocks, and the parent's csrc/verify.cu, on 262,144 random
+   keys (about half of them off the curve); planes and flags must agree.
 """
 
 import argparse
@@ -52,6 +60,8 @@ ALU_OPS = ("IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "IABS", "IMNMX",
 CORES_SRC = r"""
 #include "fe25519.cuh"
 #include "fe25519_wide.cuh"
+#include "edwards25519.cuh"
+#include "edwards25519_wide.cuh"
 #include <cuda_runtime.h>
 
 // Eight 32-bit words, lazy reduction by 2^256 = 38 (mod p): the reference
@@ -153,6 +163,29 @@ OPS(fe13, fe25519, 20, int32_t, fe25519::mul, fe25519::sqr)
 OPS(wide, fe_wide, 10, uint32_t, fe_wide::mul, fe_wide::sqr)
 OPS(w8, w8, 8, uint32_t, w8::mul, w8::sqr)
 
+// One Edwards doubling per trip, the point's four coordinates in registers.
+#define DBL_CHAIN(NAME, NS, N, T)                                           \
+  __global__ void __launch_bounds__(256) NAME(uint32_t* io, int iters) {    \
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;                    \
+    NS::Ext p;                                                              \
+    _Pragma("unroll") for (int i = 0; i < N; i++) {                         \
+      p.x.v[i] = (T)io[(4 * t) * N + i];                                    \
+      p.y.v[i] = (T)io[(4 * t + 1) * N + i];                                \
+      p.z.v[i] = (T)io[(4 * t + 2) * N + i];                                \
+      p.t.v[i] = (T)io[(4 * t + 3) * N + i];                                \
+    }                                                                       \
+    _Pragma("unroll 1") for (int it = 0; it < iters; it++) p = NS::dbl(p);  \
+    _Pragma("unroll") for (int i = 0; i < N; i++) {                         \
+      io[(4 * t) * N + i] = (uint32_t)p.x.v[i];                             \
+      io[(4 * t + 1) * N + i] = (uint32_t)p.y.v[i];                         \
+      io[(4 * t + 2) * N + i] = (uint32_t)p.z.v[i];                         \
+      io[(4 * t + 3) * N + i] = (uint32_t)p.t.v[i];                         \
+    }                                                                       \
+  }
+
+DBL_CHAIN(fe13_dbl, ed25519, 20, int32_t)
+DBL_CHAIN(wide_dbl, ed_wide, 10, uint32_t)
+
 #define LAUNCH(NAME)                                                        \
   extern "C" int NAME##_launch(void* io, int iters, int blocks, void* s) {  \
     NAME<<<blocks, 256, 0, (cudaStream_t)s>>>((uint32_t*)io, iters);        \
@@ -162,10 +195,15 @@ OPS(w8, w8, 8, uint32_t, w8::mul, w8::sqr)
 LAUNCHES(fe13)
 LAUNCHES(wide)
 LAUNCHES(w8)
+LAUNCH(fe13_dbl)
+LAUNCH(wide_dbl)
 """
 
-# core -> (limbs, the bound of the random limbs that start each chain)
-CORES = {"fe13": (20, 1 << 13), "wide": (10, 1 << 25), "w8": (8, 1 << 32)}
+# core -> (limbs, the bound of the random limbs that start each chain, its
+# chains)
+CORES = {"fe13": (20, 1 << 13, ("mul", "sqr", "dbl")),
+         "wide": (10, 1 << 25, ("mul", "sqr", "dbl")),
+         "w8": (8, 1 << 32, ("mul", "sqr"))}
 
 
 def nvcc_build(src, out, include=build.CSRC, flags=()):
@@ -274,16 +312,17 @@ def start_cores_build():
 
 
 def run_cores(so, log, rng, card, iters=128):
-    names = ["%s_%s" % (c, op) for c in CORES for op in ("mul", "sqr")]
+    names = ["%s_%s" % (c, op) for c, (_, _, ops) in CORES.items()
+             for op in ops]
     regs = build.parse_ptxas(log.read_text(), names)
     lib = load(so, [n + "_launch" for n in names],
                [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     blocks = BATCH // THREADS
     funcs = sass_functions(so)
     rows = {}
-    for core, (nlimbs, bound) in CORES.items():
-        init = rng.integers(0, bound, (BATCH, 2, nlimbs), dtype=np.uint64)
-        for op in ("mul", "sqr"):
+    for core, (nlimbs, bound, ops) in CORES.items():
+        init = rng.integers(0, bound, (BATCH, 4, nlimbs), dtype=np.uint64)
+        for op in ops:
             name = "%s_%s" % (core, op)
             io = torch.from_numpy(init.astype(np.uint32).view(np.int32)).cuda()
             entry = getattr(lib, name + "_launch")
@@ -307,9 +346,10 @@ def run_cores(so, log, rng, card, iters=128):
     return rows
 
 
-# The checkout's ladder lane (ladder.cu's x25519_lane) in a kernel of the
-# probe's own, at the block size and __launch_bounds__ minimum that the
-# build defines.
+# A checkout's lane function in a kernel of the probe's own, at the block
+# size and __launch_bounds__ minimum that the build defines: the ladder's
+# (ladder.cu's x25519_lane) and Verify_Init's (verify.cu's
+# verify_init_lane).
 LADDER_VARIANT = r"""
 #include "ladder.cu"
 
@@ -332,80 +372,136 @@ extern "C" int probe_ladder_launch(void* out, const void* u, const void* k,
 }
 """
 
+VINIT_VARIANT = r"""
+#include "verify.cu"
 
-def probe_ladders(variants, parent):
-    """Start one nvcc per ladder build: the checkout's ladder.cu as it
-    ships, each (threads, min_blocks) variant, and the parent's ladder.cu.
+__global__ void __launch_bounds__(PROBE_THREADS, PROBE_MIN_BLOCKS)
+probe_vinit_kernel(uint32_t* __restrict__ planes, uint8_t* __restrict__ ok,
+                   const uint8_t* __restrict__ pk, int64_t n) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  verify_init_lane(planes + kQtWords * lane, ok + lane, pk + 32 * lane);
+}
+
+extern "C" int probe_vinit_launch(void* planes, void* ok, const void* pk,
+                                  int64_t n, void* stream) {
+  probe_vinit_kernel<<<(unsigned)((n + PROBE_THREADS - 1) / PROBE_THREADS),
+                       PROBE_THREADS, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)planes, (uint8_t*)ok, (const uint8_t*)pk, n);
+  return (int)cudaGetLastError();
+}
+"""
+
+# what -> (its source in csrc/, launch entry, kernel, the probe's variant
+# source, the probe's launch entry and kernel)
+KERNELS = {
+    "ladder": ("ladder.cu", "x25519_ladder_launch", "x25519_ladder_kernel",
+               LADDER_VARIANT, "probe_ladder_launch", "probe_ladder_kernel"),
+    "vinit": ("verify.cu", "verify_init_launch", "verify_init_kernel",
+              VINIT_VARIANT, "probe_vinit_launch", "probe_vinit_kernel"),
+}
+
+
+def probe_builds(what, variants, parent):
+    """Start one nvcc per build of a kernel: the checkout's source as it
+    ships, each (threads, min_blocks) variant, and the parent's source.
     Returns name -> (library, launch entry, kernel, (process, log))."""
+    src, entry, kernel, variant, probe_entry, probe_kernel = KERNELS[what]
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
-    variant_src = PROBE_DIR / "ladder_variant.cu"
-    variant_src.write_text(LADDER_VARIANT)
+    variant_src = PROBE_DIR / ("%s_variant.cu" % what)
+    variant_src.write_text(variant)
     jobs = {}
     sources = [("shipped", build.CSRC)]
     if parent is not None:
         sources.append(("parent", Path(parent) / "curve25519_tpu_torch"
                         "/ops/cuda/csrc"))
     for name, csrc in sources:
-        so = PROBE_DIR / ("lib%s.so" % name)
-        jobs[name] = (so, "x25519_ladder_launch", "x25519_ladder_kernel",
-                      nvcc_build(csrc / "ladder.cu", so, include=csrc))
+        so = PROBE_DIR / ("lib%s_%s.so" % (what, name))
+        jobs[name] = (so, entry, kernel,
+                      nvcc_build(csrc / src, so, include=csrc))
     for threads, min_blocks in variants:
-        name = "ladder_t%d_m%d" % (threads, min_blocks)
+        name = "%s_t%d_m%d" % (what, threads, min_blocks)
         so = PROBE_DIR / ("lib%s.so" % name)
         flags = ["-DPROBE_THREADS=%d" % threads,
                  "-DPROBE_MIN_BLOCKS=%d" % min_blocks]
-        jobs[name] = (so, "probe_ladder_launch", "probe_ladder_kernel",
+        jobs[name] = (so, probe_entry, probe_kernel,
                       nvcc_build(variant_src, so, flags=flags))
     return jobs
 
 
-def run_ladders(jobs, rng, card):
-    u = torch.from_numpy(rng.integers(0, 256, (BATCH, 32), np.uint8)).cuda()
-    k = rng.integers(0, 256, (BATCH, 32), np.uint8)
-    k[:, 0] &= 248
-    k[:, 31] = (k[:, 31] & 127) | 64
-    k = torch.from_numpy(k).cuda()
+def run_in_turns(what, jobs, argtypes, make_outputs, args_of, card):
+    """Launch every build of `jobs` once (make_outputs() gives a build its
+    output tensors, args_of(outputs) the launch's arguments before the
+    stream), hold all outputs equal, then time the builds in turns. Each
+    row: ptxas's report, the SASS opcodes of the whole kernel and of its
+    longest loop, and the times."""
     launches, rows, outs = {}, {}, {}
     for name, (so, entry, kernel, (_, log)) in jobs.items():
         info = build.parse_ptxas(log.read_text(), [kernel])
         insts = kernel_sass(sass_functions(so), kernel)
         rows[name] = dict(info[kernel],
                           **summarize(opcodes(insts)),
-                          step=summarize(opcodes(insts, loop=True)), ms=[])
+                          loop=summarize(opcodes(insts, loop=True)), ms=[])
         launches[name] = fn = getattr(ctypes.CDLL(str(so)), entry)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64,
-                                               ctypes.c_void_p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        outs[name] = out = torch.empty_like(u)
-        rc = fn(out.data_ptr(), u.data_ptr(), k.data_ptr(), None, BATCH,
-                stream())
+        outs[name] = make_outputs()
+        rc = fn(*args_of(outs[name]), stream())
         if rc != 0:
             raise RuntimeError("%s launch failed: %d" % (name, rc))
         torch.cuda.synchronize()
-    first = next(iter(outs.values()))
+    first = next(iter(outs))
     for name, out in outs.items():
-        if not torch.equal(out, first):
-            raise RuntimeError("%s's bytes differ from %s's"
-                               % (name, next(iter(outs))))
+        if not all(torch.equal(a, b) for a, b in zip(out, outs[first])):
+            raise RuntimeError("%s's bytes differ from %s's" % (name, first))
     order = list(launches)
     for _ in range(ROUNDS):
         for name in order + order[::-1]:
-            out, fn = outs[name], launches[name]
-            rows[name]["ms"].append(event_ms(lambda: fn(
-                out.data_ptr(), u.data_ptr(), k.data_ptr(), None, BATCH,
-                stream())))
+            args, fn = args_of(outs[name]), launches[name]
+            rows[name]["ms"].append(event_ms(lambda: fn(*args, stream())))
     for name, row in rows.items():
         row["best_ms"] = min(row["ms"])
-        step = row["step"]
-        print("ladder [%s]: %s %d registers, spill %d/%d B | SASS IMAD.WIDE "
-              "%d, other IMAD %d, ALU %d, all %d; one ladder step (its loop) "
-              "%d, %d, %d, %d | best %.3f ms of %s, B=%d"
-              % (card, name, row["registers"], row["spill_store_bytes"],
-                 row["spill_load_bytes"], row["imad_wide"], row["imad"],
-                 row["alu"], row["total"], step["imad_wide"], step["imad"],
-                 step["alu"], step["total"], row["best_ms"],
+        loop = row["loop"]
+        print("%s [%s]: %s %d registers, spill %d/%d B, stack %d B | SASS "
+              "IMAD.WIDE %d, other IMAD %d, ALU %d, all %d; its longest "
+              "loop %d, %d, %d, %d | best %.3f ms of %s, B=%d"
+              % (what, card, name, row["registers"],
+                 row["spill_store_bytes"], row["spill_load_bytes"],
+                 row["stack_bytes"], row["imad_wide"], row["imad"],
+                 row["alu"], row["total"], loop["imad_wide"], loop["imad"],
+                 loop["alu"], loop["total"], row["best_ms"],
                  ", ".join("%.3f" % t for t in row["ms"]), BATCH))
     return rows
+
+
+def run_ladders(jobs, rng, card):
+    """The ladder builds on random u and clamped keys (the longest loop is
+    one ladder step)."""
+    u = torch.from_numpy(rng.integers(0, 256, (BATCH, 32), np.uint8)).cuda()
+    k = rng.integers(0, 256, (BATCH, 32), np.uint8)
+    k[:, 0] &= 248
+    k[:, 31] = (k[:, 31] & 127) | 64
+    k = torch.from_numpy(k).cuda()
+    return run_in_turns(
+        "ladder", jobs, [ctypes.c_void_p] * 4 + [ctypes.c_int64,
+                                                 ctypes.c_void_p],
+        lambda: (torch.empty_like(u),),
+        lambda out: (out[0].data_ptr(), u.data_ptr(), k.data_ptr(), None,
+                     BATCH), card)
+
+
+def run_vinits(jobs, rng, card):
+    """The Verify_Init builds on random 32-byte keys, about half of them off
+    the curve (the longest loop is the one over the three bases)."""
+    pk = torch.from_numpy(rng.integers(0, 256, (BATCH, 32), np.uint8)).cuda()
+    return run_in_turns(
+        "vinit", jobs, [ctypes.c_void_p] * 3 + [ctypes.c_int64,
+                                                ctypes.c_void_p],
+        lambda: (torch.empty((BATCH, 16, 160), dtype=torch.int8,
+                             device="cuda"),
+                 torch.empty(BATCH, dtype=torch.bool, device="cuda")),
+        lambda out: (out[0].data_ptr(), out[1].data_ptr(), pk.data_ptr(),
+                     BATCH), card)
 
 
 def card_line():
@@ -418,27 +514,35 @@ def card_line():
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="root of another checkout whose "
-                    "ladder.cu is timed beside this one's")
+                    "ladder.cu and verify.cu are timed beside this one's")
     ap.add_argument("--variants", default="64:1,128:4",
                     help="threads:min_blocks builds of this checkout's "
                     "ladder lane")
+    ap.add_argument("--vinit-variants", default="128:3,64:6,256:2",
+                    help="threads:min_blocks builds of this checkout's "
+                    "Verify_Init lane")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ladder_probe needs a CUDA card")
-    variants = [tuple(int(x) for x in v.split(":"))
-                for v in args.variants.split(",")]
+
+    def pairs(text):
+        return [tuple(int(x) for x in v.split(":")) for v in text.split(",")]
+
     card = card_line()
     print(card)
     rng = np.random.default_rng(25519)
     t0 = time.perf_counter()
     so, job = start_cores_build()
-    jobs = probe_ladders(variants, args.parent)
-    wait_all(dict(cores=job, **{n: j[3] for n, j in jobs.items()}))
+    ladders = probe_builds("ladder", pairs(args.variants), args.parent)
+    vinits = probe_builds("vinit", pairs(args.vinit_variants), args.parent)
+    wait_all(dict(cores=job, **{"ladder " + n: j[3]
+                                for n, j in ladders.items()},
+                  **{"vinit " + n: j[3] for n, j in vinits.items()}))
     print("probe builds: %.1f s wall" % (time.perf_counter() - t0))
-    cores = run_cores(so, job[1], rng, card)
-    ladders = run_ladders(jobs, rng, card)
-    print(json.dumps({"card": card, "batch": BATCH, "cores": cores,
-                      "ladders": ladders}))
+    print(json.dumps({"card": card, "batch": BATCH,
+                      "cores": run_cores(so, job[1], rng, card),
+                      "ladders": run_ladders(ladders, rng, card),
+                      "vinits": run_vinits(vinits, rng, card)}))
 
 
 if __name__ == "__main__":
