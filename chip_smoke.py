@@ -24,8 +24,8 @@ nothing of JAX or of the JAX package. Phases, each printing a line:
    kernel; then create_shared_key timed against the plain version;
 6. the base-multiply, SHA-512, keygen and sign kernels against their plain
    versions, byte for byte: 4,096 random lanes, ragged batches, rank-1 and
-   broadcast calls, fold 8 and fold 4 with all four base-multiply modes (fold
-   8 also at every ragged size), the blinded routes (which must not change a
+   broadcast calls, fold 8 and fold 4 with all four base-multiply modes
+   (both folds also at every ragged size), the blinded routes (which must not change a
    byte; keygen and sign also at every ragged size), SHA-512 at the padding edges and sign at the fused cap (943/944-byte
    messages);
 7. Ed25519 known answers: RFC 8032 7.1 TEST 1-3, SHA-512 against hashlib,
@@ -128,7 +128,8 @@ KERNELS = {
     "x25519_ladder_kernel": ("ladder.cu", PALLAS + "ladder_kernel.py:30",
                              ("x25519_ladder_kernel",)),
     "basemult_kernel": ("basemult.cu", PALLAS + "edwards_kernel.py:143",
-                        ("basemult_fold8_kernel", "basemult_fold4_kernel")),
+                        ("basemult_fold8_kernel", "basemult_fold4_kernel",
+                         "basemult_fold4_limbs_kernel")),
     "sha512_kernel": ("sha512.cu", PALLAS + "sha512_kernel.py:101",
                       ("sha512_kernel",)),
     "keygen_kernel": ("sign.cu", PALLAS + "sign_kernel.py:183",
@@ -929,7 +930,7 @@ def phase_x25519_main(dev, rng, card, counts, bound, batch=MAIN_BATCH):
 # ---------------------------------------------------------------------------
 def phase_ed_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
     from curve25519_tpu_torch.models import blinding
-    from curve25519_tpu_torch.ops import fold, sha512
+    from curve25519_tpu_torch.ops import codec, fold, sha512
     from curve25519_tpu_torch.ops.cuda import edwards_kernel as ek
     from curve25519_tpu_torch.ops.cuda import sign_kernel as sgk
 
@@ -946,9 +947,9 @@ def phase_ed_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
     sk = rand_bytes(rng, (lanes, 32), dev)
 
     # B3: both folds, every mode, with and without the PE blinding add; the
-    # fold-8 kernel's warp-wide gather on partial warps and blocks (ragged
-    # sizes) in every mode, plain and blinded, against the plain version's
-    # rows; rank-1 and broadcast calls on fold 8 pk
+    # kernels on partial warps and blocks (ragged sizes: fold 8's warp-wide
+    # gather, fold 4's lane mask) in every mode, plain and blinded, against
+    # the plain version's rows; rank-1 and broadcast calls on fold 8 pk
     for nfolds in (8, 4):
         cut = (fold.cut8_bytes if nfolds == 8 else fold.cut4_bytes)(sk)
         for mode in ek.MODES:
@@ -959,11 +960,25 @@ def phase_ed_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
                 hold("basemult_kernel",
                      ek.base_mult(cut, zr=ctx["zr"], bp=bp, mode=mode,
                                   nfolds=nfolds), want, what)
-                for n in RAGGED if nfolds == 8 else ():
+                for n in RAGGED:
                     hold("basemult_kernel",
-                         ek.base_mult(cut[:n], zr=ctx["zr"], bp=bp, mode=mode),
+                         ek.base_mult(cut[:n], zr=ctx["zr"], bp=bp, mode=mode,
+                                      nfolds=nfolds),
                          tuple(w[:n] for w in want) if isinstance(want, tuple)
                          else want[:n], "%s, ragged %d" % (what, n))
+    # fold 4's edge digits: all 0 (the identity, u = 0), all 15, the clamped
+    # key of 32 0xFF bytes
+    edge = torch.stack([torch.zeros(64, dtype=torch.int32, device=dev),
+                        torch.full((64,), 15, dtype=torch.int32, device=dev),
+                        fold.cut4_bytes(codec.clamp(torch.full(
+                            (32,), 0xFF, dtype=torch.uint8, device=dev)))])
+    for mode in ek.MODES:
+        hold("basemult_kernel", ek.base_mult(edge, zr=ctx["zr"], mode=mode,
+                                             nfolds=4),
+             ek.base_mult_plain(edge, zr=ctx["zr"], mode=mode, nfolds=4),
+             "fold 4 %s, edge digits" % mode)
+    check(not ek.base_mult(edge[:1], mode="u_bytes", nfolds=4).any(),
+          "fold 4: the identity's u is not 0")
     cut = fold.cut8_bytes(sk)
     full = ek.base_mult(cut, zr=zr, mode="pk")
     hold("basemult_kernel", ek.base_mult(cut[5], zr=zr, mode="pk"), full[5],
@@ -1041,7 +1056,8 @@ def phase_ed_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
          sgk.sign_plain(priv[:256], m944, n944, zr=zr), "944-byte messages")
     torch.cuda.synchronize()
     print("phase 6 kernels vs plain: %d random lanes; base multiply fold 8 "
-          "and 4 x 4 modes x (no BP, BP), fold 8 also ragged in each; "
+          "and 4 x 4 modes x (no BP, BP), each also ragged, fold 4 on edge "
+          "digits; "
           "SHA-512 random lengths and "
           "padding edges, prefix; keygen and sign (64 and 943 bytes fused, "
           "944 composed) plain and blinded with "

@@ -1,22 +1,23 @@
 // edwards25519_wide.cuh -- twisted-Edwards point arithmetic for one lane on
 // the wide field core (fe25519_wide.cuh: ten 32-bit limbs, radix 2^25.5).
 //
-// The Verify_Init kernel's point code (csrc/verify.cu). Each function
+// The point code of the Verify_Init kernel (csrc/verify.cu) and of the
+// fold-4 base multiply's byte modes (csrc/basemult.cu). Each function
 // computes, coordinate by coordinate, the same field element as its
 // counterpart in edwards25519.cuh and models/edwards.py: the same formulas,
 // which scale (X : Y : Z : T) alike, so the q_table's canonical limbs come
 // out byte for byte. Only the limbs differ: the wide core's unsigned limbs
 // need weak_carry where a difference would leave limbs above LOOSE on the
-// way into a multiply (dbl's H and F). The interval proof of every op below
-// is `_check_wide_core_bounds` in tests/test_torch_ladder_host.py; it also
-// shows that dbl's F = G - 2Z^2 cannot wrap although 2Z^2 is LOOSE: every
-// digit of G = 2p - A + B is at least 2^width(i) - 192, and 2Z^2 exceeds
-// 2p by at most 382 in any digit.
+// way into a multiply (dbl's H and F, add_pa's D). The interval proof of
+// every op below is `_check_wide_core_bounds` in
+// tests/test_torch_ladder_host.py; it also shows that dbl's F = G - 2Z^2
+// cannot wrap although 2Z^2 is LOOSE: every digit of G = 2p - A + B is at
+// least 2^width(i) - 192, and 2Z^2 exceeds 2p by at most 382 in any digit.
 //
 // Its names live in namespace ed_wide and take fe_wide's by using-
-// declarations: a translation unit that also includes verify_lane.cuh sees
-// the 13-bit core's Fe, one, mul, ... at global scope, and an unqualified
-// call here must not bind to those.
+// declarations: a translation unit that also includes verify_lane.cuh or
+// edwards25519.cuh sees the 13-bit core's Fe, one, mul, ... at global
+// scope, and an unqualified call here must not bind to those.
 
 #pragma once
 
@@ -47,7 +48,7 @@ struct Pe {
   Fe ypx, ymx, t2d, z2;
 };
 
-// d and 2d mod p (config.ED_D, config.ED_2D), canonical.
+// d, 2d and 1/d mod p (config.ED_D, config.ED_2D, config.ED_DI), canonical.
 FE_HD Fe ed_d() {
   constexpr uint32_t t[NLIMBS] = {56195235, 13857412, 51736253, 6949390,  114729,
                                   24766616, 60832955, 30306712, 48412415, 21499315};
@@ -57,6 +58,12 @@ FE_HD Fe ed_d() {
 FE_HD Fe ed_2d() {
   constexpr uint32_t t[NLIMBS] = {45281625, 27714825, 36363642, 13898781, 229458,
                                   15978800, 54557047, 27058993, 29715967, 9444199};
+  return fe_const(t);
+}
+
+FE_HD Fe ed_di() {
+  constexpr uint32_t t[NLIMBS] = {30013507, 3972531,  42321084, 12719050, 2979674,
+                                  28954470, 51415654, 29910370, 18959708, 16925179};
   return fe_const(t);
 }
 
@@ -102,6 +109,24 @@ FE_HD Ext add_pe(const P& p, const Q& q) {
   const Fe b = mul(p.template coord<0>(), q.template coord<0>());
   const Fe c = mul(p.template coord<2>(), q.template coord<2>());
   const Fe d = mul(p.template coord<3>(), q.template coord<3>());
+  const Fe e = sub(b, a);
+  const Fe h = add(b, a);
+  const Fe f = sub(d, c);
+  const Fe g = add(d, c);
+  return {mul(e, f), mul(h, g), mul(g, f), mul(e, h)};
+}
+
+// P + Q for Q in affine precomputed form (Y+X, Y-X, 2dXY), 7M
+// (models/edwards.add_pa): A = (Y-X) ymx, B = (Y+X) ypx, C = T t2d,
+// D = 2Z. D is a sum, not a product as in add_pe, so F = D - C and
+// G = D + C would start from LOOSE limbs, and 19 F, a multiply's pre-scaled
+// operand, could pass 32 bits: D is carried to TIGHT first. Takes P and Q
+// TIGHT; returns TIGHT.
+FE_HD Ext add_pa(const Ext& p, const Fe& ypx, const Fe& ymx, const Fe& t2d) {
+  const Fe a = mul(sub(p.y, p.x), ymx);
+  const Fe b = mul(add(p.y, p.x), ypx);
+  const Fe c = mul(p.t, t2d);
+  const Fe d = weak_carry(add(p.z, p.z));
   const Fe e = sub(b, a);
   const Fe h = add(b, a);
   const Fe f = sub(d, c);

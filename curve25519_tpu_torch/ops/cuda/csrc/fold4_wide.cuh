@@ -1,0 +1,139 @@
+// fold4_wide.cuh -- the fold-4 base multiply's byte modes ("pk",
+// "u_bytes") for one lane on the wide field core (fe25519_wide.cuh) through
+// the point formulas of edwards25519_wide.cuh: the lane of
+// basemult_fold4_kernel (csrc/basemult.cu).
+//
+// The plain version (models/edwards.base_point_mult_fold4 and the
+// epilogues of ops/cuda/edwards_kernel.base_mult_plain) runs on 13-bit
+// limbs; this lane runs its formulas in its order on another radix, so
+// every intermediate point is the same point with other limbs, and the
+// bytes, which depend only on the point, are equal. The table is
+// edwards_kernel.word_table(4): per entry ypx, ymx and t2d, each the 8
+// little-endian 32-bit words of its canonical value. The interval proof of
+// the lane's limb bounds is `_check_wide_fold4_bounds` in
+// tests/test_torch_ladder_host.py.
+//
+// Its names live in namespace fold4_wide and take fe_wide's and ed_wide's by
+// using-declarations: basemult.cu sees the 13-bit core's names at global
+// scope.
+
+#pragma once
+
+#include "edwards25519_wide.cuh"
+#include "weak_limbs.cuh"
+
+namespace fold4_wide {
+
+using ed_wide::add_pa;
+using ed_wide::dbl;
+using ed_wide::Ext;
+using fe_wide::add;
+using fe_wide::canon;
+using fe_wide::Fe;
+using fe_wide::from_words;
+using fe_wide::inv;
+using fe_wide::mul;
+using fe_wide::sub;
+using fe_wide::to_bytes;
+
+constexpr int kNent = 16;
+constexpr int kWords = 24;  // an entry: ypx, ymx, t2d, 8 words each
+
+// Entries per trip of the scan's loop (tools/ladder_probe.py times 1, 2 and
+// 4). A fully unrolled scan reads the same 384 table words in every step,
+// so nvcc hoists the reads out of the step loop and keeps them live: 972 B
+// spilled even at 255 registers.
+#ifndef FOLD4_SCAN_UNROLL
+#define FOLD4_SCAN_UNROLL 2
+#endif
+#define FOLD4_STR(x) #x
+#define FOLD4_UNROLL(n) _Pragma(FOLD4_STR(unroll n))
+
+// Constant-time fetch of entry idx of the word table (16-byte aligned;
+// 16-byte reads on the device): every entry is read, in the same order, and
+// kept under a mask.
+FE_HD void gather(Fe& ypx, Fe& ymx, Fe& t2d, const uint32_t* tbl, int32_t idx) {
+  uint32_t acc[3][8];
+#pragma unroll
+  for (int c = 0; c < 3; c++)
+#pragma unroll
+    for (int k = 0; k < 8; k++) acc[c][k] = 0;
+  FOLD4_UNROLL(FOLD4_SCAN_UNROLL)
+  for (int e = 0; e < kNent; e++) {
+    const uint32_t m = 0u - (uint32_t)(idx == e);
+#pragma unroll
+    for (int c = 0; c < 3; c++) {
+#ifdef __CUDA_ARCH__
+      const uint4* row = reinterpret_cast<const uint4*>(tbl + e * kWords + 8 * c);
+#pragma unroll
+      for (int q = 0; q < 2; q++) {
+        const uint4 v = row[q];
+        acc[c][4 * q] |= v.x & m;
+        acc[c][4 * q + 1] |= v.y & m;
+        acc[c][4 * q + 2] |= v.z & m;
+        acc[c][4 * q + 3] |= v.w & m;
+      }
+#else
+      for (int k = 0; k < 8; k++) acc[c][k] |= tbl[e * kWords + 8 * c + k] & m;
+#endif
+    }
+  }
+  ypx = from_words(acc[0]);
+  ymx = from_words(acc[1]);
+  t2d = from_words(acc[2]);
+}
+
+// S as ed_wide::add_pe's P: (Y+X, Y-X, T, Z).
+struct ExtReader {
+  const Ext& s;
+
+  template <int C>
+  FE_HD Fe coord() const {
+    if constexpr (C == 0) return add(s.y, s.x);
+    if constexpr (C == 1) return sub(s.y, s.x);
+    if constexpr (C == 2) return s.t;
+    return s.z;
+  }
+};
+
+// BP's 80 signed-weak 13-bit limbs (ypx, ymx, t2d, z2) as add_pe's Q, a
+// coordinate converted when it is read.
+struct WeakPeReader {
+  const int32_t* bp;
+
+  template <int C>
+  FE_HD Fe coord() const {
+    return wide_from_weak_limbs(bp + C * fe25519::NLIMBS);
+  }
+};
+
+// One lane of the byte modes: the plain version's ops in its order (the
+// start (2xR : 2yR : 2R : 2xyR) from entry cut[0], 63 x (dbl, gather,
+// add_pa), the BP add), then one inversion: of Z for pk, of Z - Y for
+// u_bytes (0 for the identity, whose u is 0). cut: 64 digits; zr: 20
+// limbs or null for one; bp: 80 limbs or null; out: 32 bytes, enc(S) where
+// pk, else enc(u).
+FE_HD void lane(uint8_t* out, const int32_t* cut, const int32_t* zr, const int32_t* bp,
+                bool pk, const uint32_t* tbl) {
+  const Fe z0 = zr ? wide_from_weak_limbs(zr) : fe_wide::one();
+  Fe ypx, ymx, t2d;
+  gather(ypx, ymx, t2d, tbl, cut[0]);
+  const Fe t2 = mul(t2d, ed_wide::ed_di());
+  Ext s = {mul(sub(ypx, ymx), z0), mul(add(ypx, ymx), z0), add(z0, z0), mul(t2, z0)};
+#pragma unroll 1
+  for (int i = 1; i < 64; i++) {
+    s = dbl(s);
+    gather(ypx, ymx, t2d, tbl, cut[i]);
+    s = add_pa(s, ypx, ymx, t2d);
+  }
+  if (bp) s = ed_wide::add_pe(ExtReader{s}, WeakPeReader{bp});
+  if (pk) {
+    const Fe zi = inv(s.z);
+    to_bytes(out, mul(s.y, zi));
+    out[31] |= (uint8_t)((canon(mul(s.x, zi)).v[0] & 1) << 7);
+  } else {
+    to_bytes(out, mul(add(s.z, s.y), inv(sub(s.z, s.y))));
+  }
+}
+
+}  // namespace fold4_wide

@@ -44,25 +44,11 @@
 // 13-bit core that the other kernels share), which run the same per-lane
 // code on the host.
 
-#include "fe25519.cuh"
-#include "fe25519_wide.cuh"
+#include "weak_limbs.cuh"
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
-
-// zr's 20 signed-weak 13-bit limbs -> the same value in the wide radix.
-FE_HD fe_wide::Fe zr_from_limbs(const int32_t* zr_limbs) {
-  fe25519::Fe z;
-#pragma unroll
-  for (int i = 0; i < fe25519::NLIMBS; i++) z.v[i] = zr_limbs[i];
-  int32_t enc[32];
-  fe25519::to_bytes(enc, z);
-  uint8_t b[32];
-#pragma unroll
-  for (int j = 0; j < 32; j++) b[j] = (uint8_t)enc[j];
-  return fe_wide::from_bytes(b);
-}
 
 // One lane: out = x-coordinate bytes of clamp(key) * u. `key` must already
 // be clamped (bit 254 set). `zr` is 20 signed-weak limbs, or null for one.
@@ -70,7 +56,7 @@ FE_HD void x25519_lane(uint8_t* out, const uint8_t* ubytes, const uint8_t* key,
                        const int32_t* zr_limbs) {
   using namespace fe_wide;
   const Fe u = from_bytes(ubytes);        // bit 255 is not read (RFC 7748)
-  const Fe zr = zr_limbs ? zr_from_limbs(zr_limbs) : one();
+  const Fe zr = zr_limbs ? wide_from_weak_limbs(zr_limbs) : one();
 
   // State after the virtual step for bit 254: A = 2P (doubled side),
   // B = P (sum side), prev = 1; the logical low point is prev ? B : A.

@@ -17,7 +17,7 @@ import functools
 import numpy as np
 import torch
 
-from curve25519_tpu_torch.config import NLIMBS
+from curve25519_tpu_torch.config import NLIMBS, limbs_to_int
 from curve25519_tpu_torch.models import edwards, tables
 from curve25519_tpu_torch.ops import fe
 from curve25519_tpu_torch.ops.cuda import (
@@ -25,7 +25,7 @@ from curve25519_tpu_torch.ops.cuda import (
 )
 
 __all__ = ["base_mult", "base_mult_plain", "packed_table", "mma_table",
-           "launches", "MODES"]
+           "word_table", "kernel_table", "launches", "MODES"]
 
 MODES = {"affine": 0, "mont_u": 1, "pk": 2, "u_bytes": 3}
 PE_KEYS = ("ypx", "ymx", "t2d", "z2")
@@ -63,6 +63,27 @@ def mma_table(device):
     frag = b.reshape(8, 2, 4, 4, 15, 8).transpose(0, 4, 5, 2, 1, 3)
     return torch.as_tensor(np.ascontiguousarray(frag).view("<i4").reshape(-1),
                            device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def word_table(nfolds, device):
+    """The folding table as the wide fold-4 lane reads it, on `device`: per
+    entry 24 int32 words, each of ypx, ymx and t2d as the 8 little-endian
+    32-bit words of its canonical value (the tables hold canonical limbs)."""
+    t = tables.folding8_table() if nfolds == 8 else tables.folding4_table()
+    raw = b"".join(limbs_to_int(c).to_bytes(32, "little")
+                   for entry in t for c in entry)
+    return torch.as_tensor(np.frombuffer(raw, "<i4").copy(), device=device)
+
+
+def kernel_table(nfolds, mode, device):
+    """The table that the launch of (nfolds, mode) reads: the tensor-core
+    layout for fold 8, the word table for fold 4's byte modes (the wide
+    lane), the packed table for its limb modes (the 13-bit lane)."""
+    if nfolds == 8:
+        return mma_table(device)
+    return word_table(4, device) if mode in ("pk", "u_bytes") else \
+        packed_table(4, device)
 
 
 def base_mult_plain(cut, zr=None, bp=None, mode="affine", nfolds=8):
@@ -130,8 +151,7 @@ def base_mult(cut, zr=None, bp=None, mode="affine", nfolds=8):
     out = torch.empty((n, 32) if byte_mode else (n, 2 * NLIMBS),
                       dtype=torch.uint8 if byte_mode else torch.int32,
                       device=cut.device)
-    table = mma_table(cut.device) if nfolds == 8 else packed_table(
-        4, cut.device)
+    table = kernel_table(nfolds, mode, cut.device)
     build.launch("basemult", "basemult_launch", cut.device, out.data_ptr(),
                  cut.data_ptr(),
                  None if zr_rows is None else zr_rows.data_ptr(), zr_stride,

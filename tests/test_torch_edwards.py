@@ -2,10 +2,12 @@
 against the JAX package's, and the g++ build of the base-multiply kernel's
 lane code (csrc/basemult.cu) against the port's plain version.
 
-Point ops and the fold-8 multiply must give equal limbs (same radix, same
-op order); every epilogue must give the bytes of the Python-integer oracle
-(curve25519_tpu.refmodel) and of the X25519 ladder. Inputs come from a
-seeded numpy generator. Tolerance: exact.
+Point ops and the fold-8 and fold-4 multiplies must give equal limbs (same
+radix, same op order); every epilogue must give the bytes of the
+Python-integer oracle (curve25519_tpu.refmodel) and of the X25519 ladder.
+The fold-4 byte modes run on the wide field core in the kernel; their lane
+is held byte for byte against the plain version, on random and edge
+digits. Inputs come from a seeded numpy generator. Tolerance: exact.
 """
 
 import functools
@@ -22,11 +24,12 @@ from curve25519_tpu import refmodel
 from curve25519_tpu.models import blinding as jblinding
 from curve25519_tpu.models import edwards as jedwards
 from curve25519_tpu.models import tables as jtables
+from curve25519_tpu.models import x25519 as jx25519
 from curve25519_tpu.ops import fold as jfold
 
 from curve25519_tpu_torch.config import ELL, P, int_to_limbs, limbs_to_int
 from curve25519_tpu_torch.models import blinding, edwards, tables, x25519
-from curve25519_tpu_torch.ops import fold
+from curve25519_tpu_torch.ops import codec, fold
 from curve25519_tpu_torch.ops.cuda import build, edwards_kernel
 from curve25519_tpu_torch.utils import interop
 from curve25519_tpu_torch.utils.interop import to_numpy
@@ -92,6 +95,19 @@ def test_tables_and_gathers_equal_jax(rng):
     flat = tables.folding8_table().reshape(256, 60)
     np.testing.assert_array_equal(packed & 0xFFFF, flat[:, 0::2])
     np.testing.assert_array_equal(packed >> 16, flat[:, 1::2])
+    _check_word_table()
+
+
+def _check_word_table():
+    """word_table(4), the wide fold-4 lane's layout: entry e's words 8c..8c+7
+    are the little-endian words of coordinate c's value in
+    tables.folding4_table(), each below p."""
+    words = to_numpy(edwards_kernel.word_table(4, torch.device("cpu")))
+    words = words.view(np.uint32).reshape(16, 3, 8)
+    for entry, limbs in zip(words, tables.folding4_table()):
+        for w, c in zip(entry, limbs):
+            value = sum(int(v) << 32 * k for k, v in enumerate(w))
+            assert value == limbs_to_int(c) < P
 
 
 @pytest.mark.parametrize("op", ["double", "add_pe", "add_pa"])
@@ -132,6 +148,25 @@ def test_fold8_base_mult_limbs_equal_jax(rng):
         jctx["bp"])
     for c in COORDS:
         np.testing.assert_array_equal(to_numpy(got[c]), np.asarray(want[c]))
+    _check_fold4_base_mult_equals_jax(sk, ctx, jctx)
+
+
+def _check_fold4_base_mult_equals_jax(sk, ctx, jctx):
+    """The fold-4 multiply with zr and BP added, limb for limb, against the
+    JAX package's eager base_point_mult_fold4; calculate_public_key_fast
+    with nfolds=4, as an API user calls it, byte for byte against the JAX
+    function."""
+    cut = fold.cut4_bytes(from_numpy(sk))
+    got = edwards.add_pe(edwards.base_point_mult_fold4(cut, zr=ctx["zr"]),
+                         ctx["bp"])
+    want = jedwards.add_pe(
+        jedwards.base_point_mult_fold4(jfold.cut4_bytes(sk), zr=jctx["zr"]),
+        jctx["bp"])
+    for c in COORDS:
+        np.testing.assert_array_equal(to_numpy(got[c]), np.asarray(want[c]))
+    np.testing.assert_array_equal(
+        to_numpy(x25519.calculate_public_key_fast(from_numpy(sk), nfolds=4)),
+        np.asarray(jx25519.calculate_public_key_fast(sk, nfolds=4)))
 
 
 @pytest.mark.parametrize("nfolds", [8, 4])
@@ -182,13 +217,16 @@ def test_calculate_public_key_fast_equals_ladder(rng):
 
 
 def host_basemult(lib, cut, zr, bp, mode, nfolds, mma=False):
-    """basemult.cu's lane code built with g++: the masked scan, or (mma) the
-    host emulation of the fold-8 tensor-core gather."""
+    """basemult.cu's lane code built with g++: fold 4 on the table and lane
+    that its kernel launch reads (edwards_kernel.kernel_table: the wide lane
+    for the byte modes); fold 8 by the masked scan, or (mma) the host
+    emulation of the tensor-core gather."""
     n = len(cut)
     cut = np.ascontiguousarray(cut, np.int32)
     cpu = torch.device("cpu")
     table = to_numpy(edwards_kernel.mma_table(cpu) if mma
-                     else edwards_kernel.packed_table(nfolds, cpu))
+                     else edwards_kernel.packed_table(8, cpu) if nfolds == 8
+                     else edwards_kernel.kernel_table(4, mode, cpu))
     byte_mode = mode in ("pk", "u_bytes")
     out = np.zeros((n, 32), np.uint8) if byte_mode else np.zeros((n, 40),
                                                                  np.int32)
@@ -208,30 +246,52 @@ def test_host_kernel_equals_plain(lib, rng, nfolds, mma):
     """Every mode, with and without BP. The tensor-core gather's emulation
     (the lane's digit at its own position in a warp whose other lanes ask for
     other entries) runs on 3 lanes at positions 0, 1, 2 and is also held
-    against the masked scan."""
+    against the masked scan. Fold 4 (the byte modes on the wide lane) also
+    runs without zr, and on edge digits: all 0 (the identity: u_bytes 0, pk
+    enc(0, 1)), all 15, and the clamped key of 32 0xFF bytes, whose top
+    digit is set."""
     sk = torch.from_numpy(rand_keys(rng, 3))
     cut = (fold.cut8_bytes if nfolds == 8 else fold.cut4_bytes)(sk)
+    if nfolds == 4:
+        top = fold.cut4_bytes(codec.clamp(torch.full((1, 32), 255,
+                                                     dtype=torch.uint8)))
+        assert top[0, -1] != 0
+        cut = torch.cat([cut, torch.zeros_like(cut[:1]),
+                         torch.full_like(cut[:1], 15), top])
     ctx = blinding.blinding_init(b"host", device="cpu")
     zr = np.ascontiguousarray(to_numpy(ctx["zr"]))
     bp = np.ascontiguousarray(to_numpy(torch.cat(
         [ctx["bp"][k] for k in edwards_kernel.PE_KEYS])))
+    outs = {}
     for mode in edwards_kernel.MODES:
-        for use_bp in (False, True):
-            got = host_basemult(lib, to_numpy(cut), zr, bp if use_bp else None,
-                                mode, nfolds, mma)
-            want = edwards_kernel.base_mult_plain(
-                cut, zr=ctx["zr"], bp=ctx["bp"] if use_bp else None,
-                mode=mode, nfolds=nfolds)
-            if isinstance(want, tuple):
-                for g, w in zip(got, want):
-                    np.testing.assert_array_equal(g, to_numpy(w))
-            else:
-                np.testing.assert_array_equal(got, to_numpy(want))
-            if mma:
-                scan = host_basemult(lib, to_numpy(cut), zr,
-                                     bp if use_bp else None, mode, nfolds)
-                for g, w in zip(got if isinstance(got, tuple) else (got,),
-                                scan if isinstance(scan, tuple) else (scan,)):
-                    np.testing.assert_array_equal(g, w)
+        for use_zr in (True, False) if nfolds == 4 else (True,):
+            for use_bp in (False, True):
+                got = host_basemult(lib, to_numpy(cut), zr if use_zr else None,
+                                    bp if use_bp else None, mode, nfolds, mma)
+                want = edwards_kernel.base_mult_plain(
+                    cut, zr=ctx["zr"] if use_zr else None,
+                    bp=ctx["bp"] if use_bp else None, mode=mode,
+                    nfolds=nfolds)
+                if isinstance(want, tuple):
+                    for g, w in zip(got, want):
+                        np.testing.assert_array_equal(g, to_numpy(w))
+                else:
+                    np.testing.assert_array_equal(got, to_numpy(want))
+                outs[mode, use_zr, use_bp] = got
+                if mma:
+                    scan = host_basemult(lib, to_numpy(cut), zr,
+                                         bp if use_bp else None, mode, nfolds)
+                    for g, w in zip(
+                            got if isinstance(got, tuple) else (got,),
+                            scan if isinstance(scan, tuple) else (scan,)):
+                        np.testing.assert_array_equal(g, w)
+    if nfolds == 4:
+        identity = 3
+        assert not outs["u_bytes", True, False][identity].any()
+        assert outs["pk", True, False][identity].tolist() == [1] + [0] * 31
+        # zr scales the projective point only: the bytes stay as they are
+        for mode in ("pk", "u_bytes"):
+            np.testing.assert_array_equal(outs[mode, True, False],
+                                          outs[mode, False, False])
     assert lib.basemult_host(1, None, None, None, 0, None, 0, None, 4, 0,
                              0) == -1           # the emulation is fold 8 only

@@ -12,12 +12,13 @@ code is held, exactly, against:
 - the plain ladder (models/montgomery.point_multiply) and the Python oracle
   (curve25519_tpu.refmodel), byte for byte.
 
-The ladder kernel and the Verify_Init kernel run on another core,
+The ladder, Verify_Init and the fold-4 byte modes run on another core,
 ops/cuda/csrc/fe25519_wide.cuh (ten 32-bit limbs in radix 2^25.5), the
-latter through the Edwards formulas of csrc/edwards25519_wide.cuh. Its
+latter two through the Edwards formulas of csrc/edwards25519_wide.cuh. Its
 checks are ``_check_wide_*`` helpers inside the tests below: an executable
 interval proof of its limb bounds (in the manner of tests/test_bounds.py)
-over one ladder step and the Verify_Init lane's ops, each of its ops
+over one ladder step, the Verify_Init lane's ops and the fold-4 base
+multiply's byte-mode lane (csrc/basemult.cu), each of its ops
 through ``fe_wide_op_host`` against Python integers mod p, and the RFC
 7748 5.2 1,000-iteration vector through ``x25519_ladder_host``. None of
 them runs JAX.
@@ -426,8 +427,8 @@ def _w_sqr_times(x, n):
     return x
 
 
-def _w_pow2523(x):
-    """pow2523: chain_2_250, then two squarings and a multiply."""
+def _w_chain_2_250(x):
+    """chain_2_250: (x^(2^250 - 1), x^11)."""
     x2 = _w_sqr(x)
     x9 = _w_mul(_w_sqr(_w_sqr(x2)), x)
     x11 = _w_mul(x9, x2)
@@ -438,8 +439,18 @@ def _w_pow2523(x):
     t = x50 = _w_mul(_w_sqr_times(t, 10), x10)
     t = _w_mul(_w_sqr_times(t, 50), t)
     t = _w_mul(_w_sqr_times(t, 100), t)
-    t = _w_mul(_w_sqr_times(t, 50), x50)
-    return _w_mul(_w_sqr_times(t, 2), x)
+    return _w_mul(_w_sqr_times(t, 50), x50), x11
+
+
+def _w_pow2523(x):
+    """pow2523: chain_2_250, then two squarings and a multiply."""
+    return _w_mul(_w_sqr_times(_w_chain_2_250(x)[0], 2), x)
+
+
+def _w_inv(x):
+    """inv: chain_2_250, then five squarings and a multiply by x^11."""
+    t, x11 = _w_chain_2_250(x)
+    return _w_mul(_w_sqr_times(t, 5), x11)
 
 
 def _w_sqrt_ratio(u, v):
@@ -483,6 +494,20 @@ def _w_add_pe(p, q):
     a = _w_mul(p[1], q[1])
     b = _w_mul(p[0], q[0])
     c, d = _w_mul(p[2], q[2]), _w_mul(p[3], q[3])
+    e, h, f, g = _w_sub(b, a), _w_add(b, a), _w_sub(d, c), _w_add(d, c)
+    return _w_mul(e, f), _w_mul(h, g), _w_mul(g, f), _w_mul(e, h)
+
+
+def _w_add_pa(p, q, carry_d=True):
+    """ed_wide::add_pa; q = (ypx, ymx, t2d); carry_d=False drops the
+    weak_carry of D = 2Z."""
+    x, y, z, t = p
+    a = _w_mul(_w_sub(y, x), q[1])
+    b = _w_mul(_w_add(y, x), q[0])
+    c = _w_mul(t, q[2])
+    d = _w_add(z, z)
+    if carry_d:
+        d = _w_weak_carry(d)
     e, h, f, g = _w_sub(b, a), _w_add(b, a), _w_sub(d, c), _w_add(d, c)
     return _w_mul(e, f), _w_mul(h, g), _w_mul(g, f), _w_mul(e, h)
 
@@ -532,6 +557,39 @@ def _check_wide_edwards_bounds():
     assert _within(_w_weak_carry([(0, (1 << 31) - 1)] * 10), W_TIGHT)
 
 
+def _check_wide_fold4_bounds():
+    """The fold-4 byte-mode lane of basemult.cu on interval limbs. The start
+    point from a table entry's from_words (canonical digits) and a
+    canonical zr (zr and BP arrive through from_bytes): x2 = ypx - ymx and
+    y2 = ypx + ymx are LOOSE, T a product, and Z = 2zr goes LOOSE into dbl,
+    which squares it only. A step, dbl then add_pa, on TIGHT state; add_pa
+    needs the weak_carry of D = 2Z: without it 19 F, a multiply's
+    pre-scaled operand, passes 32 bits. The BP add (add_pe with P read as
+    (Y+X, Y-X, T, Z)) and both epilogues' one inversion and multiplies."""
+    canonical = [(0, (1 << w) - 1) for w in W_WIDTH]
+    tight = [(0, b - 1) for b in W_TIGHT]
+    entry = zr = canonical
+    x2, y2 = _w_sub(entry, entry), _w_add(entry, entry)
+    start = (_w_mul(x2, zr), _w_mul(y2, zr), _w_add(zr, zr),
+             _w_mul(_w_mul(entry, _W_CONST), zr))
+    state = (tight,) * 4
+    for p in (start, state):
+        for out in _w_dbl(p):
+            assert _within(out, W_TIGHT), out
+    for out in _w_add_pa(state, (entry,) * 3):
+        assert _within(out, W_TIGHT), out
+    with pytest.raises(AssertionError):
+        _w_add_pa(state, (entry,) * 3, carry_d=False)
+    x, y, z, t = state
+    for out in _w_add_pe((_w_add(y, x), _w_sub(y, x), t, z), (canonical,) * 4):
+        assert _within(out, W_TIGHT), out
+    u = _w_mul(_w_add(z, y), _w_inv(_w_sub(z, y)))          # u_bytes
+    zi = _w_inv(z)                                          # pk
+    for out in (u, _w_mul(y, zi), _w_mul(x, zi)):
+        assert _within(out, W_TIGHT), out
+        assert _within(_w_canon(out), [1 << w for w in W_WIDTH]), out
+
+
 def _check_wide_core_bounds():
     """The executable bounds proof of fe25519_wide.cuh. Every 32-bit
     operand and sum and every 64-bit column, partial sum and carry of each
@@ -565,6 +623,7 @@ def _check_wide_core_bounds():
                 _w_mul(aa, bb), _w_mul(e, _w_msa(aa, e))):
         assert _within(out, W_TIGHT), out
     _check_wide_edwards_bounds()
+    _check_wide_fold4_bounds()
 
 
 def _w_value(limbs):

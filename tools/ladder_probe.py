@@ -1,8 +1,9 @@
-"""Measure the X25519 ladder and Verify_Init kernels and the field cores on
-one CUDA card.
+"""Measure the X25519 ladder, Verify_Init and fold-4 base-multiply kernels
+and the field cores on one CUDA card.
 
     python3 tools/ladder_probe.py [--parent DIR] [--variants 64:1,128:4]
                                   [--vinit-variants 128:3,64:6,256:2]
+                                  [--fold4-variants 128:4:2,128:4:1,256:2:1]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Prints one line per measurement and, last, one JSON object of them all;
@@ -17,7 +18,11 @@ builds into curve25519_tpu_torch/ops/cuda/_build/probe/ (git-ignored):
    one op per trip (x, y = x * y, x; or x = x^2), ptxas's registers, and
    the device time of one op per lane. Also one Edwards doubling per trip
    (P = 2P) on the 13-bit core (csrc/edwards25519.cuh) and on the wide core
-   (csrc/edwards25519_wide.cuh).
+   (csrc/edwards25519_wide.cuh), and one fold-4 step per trip (a doubling,
+   the constant-time scan of the 16-entry table in shared memory, a table
+   add): the 13-bit core's over the packed table (edwards_kernel.
+   packed_table) and the wide core's over the word table (word_table,
+   csrc/fold4_wide.cuh).
 2. Ladder builds: the checkout's csrc/ladder.cu as it ships; its lane
    function in a kernel of the probe's own at each `--variants`
    threads:min_blocks (block size and __launch_bounds__ minimum); and, with
@@ -31,6 +36,13 @@ builds into curve25519_tpu_torch/ops/cuda/_build/probe/ (git-ignored):
    lane (verify.cu's verify_init_lane) at each `--vinit-variants`
    threads:min_blocks, and the parent's csrc/verify.cu, on 262,144 random
    keys (about half of them off the curve); planes and flags must agree.
+4. Fold-4 base-multiply builds, the same way: the checkout's
+   basemult_fold4_kernel (csrc/basemult.cu) in the "u_bytes" mode of
+   calculate_public_key_fast(nfolds=4), its lane (fold4_wide::lane) at each
+   `--fold4-variants` threads:min_blocks (0: no minimum), optionally with
+   another count of scan entries per loop trip (:unroll), and the parent's
+   basemult_fold4_kernel, each on the table its launch reads, on 262,144
+   random scalars' digits; the bytes must agree.
 """
 
 import argparse
@@ -47,7 +59,8 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from curve25519_tpu_torch.ops.cuda import build  # noqa: E402
+from curve25519_tpu_torch.ops import codec, fold  # noqa: E402
+from curve25519_tpu_torch.ops.cuda import build, edwards_kernel  # noqa: E402
 
 PROBE_DIR = build.BUILD_DIR / "probe"
 THREADS = 256
@@ -62,6 +75,7 @@ CORES_SRC = r"""
 #include "fe25519_wide.cuh"
 #include "edwards25519.cuh"
 #include "edwards25519_wide.cuh"
+#include "fold4_wide.cuh"
 #include <cuda_runtime.h>
 
 // Eight 32-bit words, lazy reduction by 2^256 = 38 (mod p): the reference
@@ -186,6 +200,43 @@ OPS(w8, w8, 8, uint32_t, w8::mul, w8::sqr)
 DBL_CHAIN(fe13_dbl, ed25519, 20, int32_t)
 DBL_CHAIN(wide_dbl, ed_wide, 10, uint32_t)
 
+// One fold-4 step per trip: P = 2P, the scan of the 16 entries of `table`
+// (WORDS a entry) staged in shared memory, P = P + entry.
+#define STEP_CHAIN(NAME, NS, N, T, WORDS, GATHER)                           \
+  __global__ void __launch_bounds__(256) NAME(uint32_t* io,                 \
+                                              const uint32_t* table,        \
+                                              int iters) {                  \
+    __shared__ __align__(16) uint32_t tbl[16 * WORDS];                      \
+    for (int i = threadIdx.x; i < 16 * WORDS; i += blockDim.x)              \
+      tbl[i] = table[i];                                                    \
+    __syncthreads();                                                        \
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;                    \
+    NS::Ext p;                                                              \
+    _Pragma("unroll") for (int i = 0; i < N; i++) {                         \
+      p.x.v[i] = (T)io[(4 * t) * N + i];                                    \
+      p.y.v[i] = (T)io[(4 * t + 1) * N + i];                                \
+      p.z.v[i] = (T)io[(4 * t + 2) * N + i];                                \
+      p.t.v[i] = (T)io[(4 * t + 3) * N + i];                                \
+    }                                                                       \
+    _Pragma("unroll 1") for (int it = 0; it < iters; it++) {                \
+      p = NS::dbl(p);                                                       \
+      NS::Fe ypx, ymx, t2d;                                                 \
+      GATHER(ypx, ymx, t2d, tbl, (t + it) & 15);                            \
+      p = NS::add_pa(p, ypx, ymx, t2d);                                     \
+    }                                                                       \
+    _Pragma("unroll") for (int i = 0; i < N; i++) {                         \
+      io[(4 * t) * N + i] = (uint32_t)p.x.v[i];                             \
+      io[(4 * t + 1) * N + i] = (uint32_t)p.y.v[i];                         \
+      io[(4 * t + 2) * N + i] = (uint32_t)p.z.v[i];                         \
+      io[(4 * t + 3) * N + i] = (uint32_t)p.t.v[i];                         \
+    }                                                                       \
+  }
+
+STEP_CHAIN(fe13_fold4, ed25519, 20, int32_t, ed25519::kEntryWords,
+           ed25519::gather<16>)
+STEP_CHAIN(wide_fold4, ed_wide, 10, uint32_t, fold4_wide::kWords,
+           fold4_wide::gather)
+
 #define LAUNCH(NAME)                                                        \
   extern "C" int NAME##_launch(void* io, int iters, int blocks, void* s) {  \
     NAME<<<blocks, 256, 0, (cudaStream_t)s>>>((uint32_t*)io, iters);        \
@@ -197,12 +248,23 @@ LAUNCHES(wide)
 LAUNCHES(w8)
 LAUNCH(fe13_dbl)
 LAUNCH(wide_dbl)
+
+#define STEP_LAUNCH(NAME)                                                   \
+  extern "C" int NAME##_launch(void* io, const void* table, int iters,     \
+                               int blocks, void* s) {                      \
+    NAME<<<blocks, 256, 0, (cudaStream_t)s>>>((uint32_t*)io,               \
+                                              (const uint32_t*)table,      \
+                                              iters);                      \
+    return (int)cudaGetLastError();                                         \
+  }
+STEP_LAUNCH(fe13_fold4)
+STEP_LAUNCH(wide_fold4)
 """
 
 # core -> (limbs, the bound of the random limbs that start each chain, its
-# chains)
-CORES = {"fe13": (20, 1 << 13, ("mul", "sqr", "dbl")),
-         "wide": (10, 1 << 25, ("mul", "sqr", "dbl")),
+# chains; "fold4" takes the table of its step)
+CORES = {"fe13": (20, 1 << 13, ("mul", "sqr", "dbl", "fold4")),
+         "wide": (10, 1 << 25, ("mul", "sqr", "dbl", "fold4")),
          "w8": (8, 1 << 32, ("mul", "sqr"))}
 
 
@@ -289,8 +351,8 @@ def event_ms(fn, reps=3):
     return best
 
 
-def load(so, entries, argtypes):
-    lib = ctypes.CDLL(str(so))
+def load(so, entries, argtypes, lib=None):
+    lib = lib or ctypes.CDLL(str(so))
     for name in entries:
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
@@ -315,8 +377,14 @@ def run_cores(so, log, rng, card, iters=128):
     names = ["%s_%s" % (c, op) for c, (_, _, ops) in CORES.items()
              for op in ops]
     regs = build.parse_ptxas(log.read_text(), names)
-    lib = load(so, [n + "_launch" for n in names],
-               [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib = load(so, [n + "_launch" for n in names if "fold4" not in n],
+               [vp, i32, i32, vp])
+    load(so, [n + "_launch" for n in names if "fold4" in n],
+         [vp, vp, i32, i32, vp], lib)
+    dev = torch.device("cuda")
+    tables = {"fe13": edwards_kernel.packed_table(4, dev),
+              "wide": edwards_kernel.word_table(4, dev)}
     blocks = BATCH // THREADS
     funcs = sass_functions(so)
     rows = {}
@@ -326,9 +394,11 @@ def run_cores(so, log, rng, card, iters=128):
             name = "%s_%s" % (core, op)
             io = torch.from_numpy(init.astype(np.uint32).view(np.int32)).cuda()
             entry = getattr(lib, name + "_launch")
+            head = ((io.data_ptr(), tables[core].data_ptr()) if op == "fold4"
+                    else (io.data_ptr(),))
 
             def run():
-                rc = entry(io.data_ptr(), iters, blocks, stream())
+                rc = entry(*head, iters, blocks, stream())
                 if rc != 0:
                     raise RuntimeError("%s launch failed: %d" % (name, rc))
 
@@ -336,13 +406,16 @@ def run_cores(so, log, rng, card, iters=128):
             ms = event_ms(run)
             rows[name] = row = dict(
                 summarize(opcodes(kernel_sass(funcs, name), loop=True)),
-                registers=regs[name]["registers"], ms_per_op=ms / iters)
+                registers=regs[name]["registers"],
+                spill_store_bytes=regs[name]["spill_store_bytes"],
+                ms_per_op=ms / iters)
             print("cores [%s]: %s %s, one trip of its chain: IMAD.WIDE %d, "
                   "other IMAD %d, ALU %d, all %d SASS instructions | %d "
-                  "registers | %.4f ms per op over %d lanes" % (
+                  "registers, spill %d B | %.4f ms per op (fold4: per step) "
+                  "over %d lanes" % (
                       card, core, op, row["imad_wide"], row["imad"],
                       row["alu"], row["total"], row["registers"],
-                      row["ms_per_op"], BATCH))
+                      row["spill_store_bytes"], row["ms_per_op"], BATCH))
     return rows
 
 
@@ -392,6 +465,48 @@ extern "C" int probe_vinit_launch(void* planes, void* ok, const void* pk,
 }
 """
 
+FOLD4_VARIANT = r"""
+#include "basemult.cu"
+
+#if PROBE_MIN_BLOCKS > 0
+#define PROBE_BOUNDS __launch_bounds__(PROBE_THREADS, PROBE_MIN_BLOCKS)
+#else
+#define PROBE_BOUNDS __launch_bounds__(PROBE_THREADS)
+#endif
+
+// basemult_fold4_kernel's body at the probe's block size and minimum
+__global__ void PROBE_BOUNDS
+probe_fold4_kernel(char* out, const int32_t* __restrict__ cut,
+                   const int32_t* __restrict__ zr, int64_t zr_stride,
+                   const int32_t* __restrict__ bp, int64_t bp_stride,
+                   const uint32_t* __restrict__ table, int mode, int64_t n) {
+  constexpr int kTableWords = fold4_wide::kNent * fold4_wide::kWords;
+  __shared__ __align__(16) uint32_t tbl[kTableWords];
+  for (int i = threadIdx.x; i < kTableWords; i += blockDim.x)
+    tbl[i] = table[i];
+  __syncthreads();
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  fold4_wide::lane((uint8_t*)out + 32 * lane, cut + 64 * lane,
+                   zr ? zr + zr_stride * lane : nullptr,
+                   bp ? bp + bp_stride * lane : nullptr, mode == MODE_PK,
+                   tbl);
+}
+
+// basemult_launch's arguments, for the byte modes of fold 4
+extern "C" int probe_fold4_launch(void* out, const void* cut, const void* zr,
+                                  int64_t zr_stride, const void* bp,
+                                  int64_t bp_stride, const void* table,
+                                  int nfolds, int mode, int64_t n,
+                                  void* stream) {
+  probe_fold4_kernel<<<(unsigned)((n + PROBE_THREADS - 1) / PROBE_THREADS),
+                       PROBE_THREADS, 0, (cudaStream_t)stream>>>(
+      (char*)out, (const int32_t*)cut, (const int32_t*)zr, zr_stride,
+      (const int32_t*)bp, bp_stride, (const uint32_t*)table, mode, n);
+  return (int)cudaGetLastError();
+}
+"""
+
 # what -> (its source in csrc/, launch entry, kernel, the probe's variant
 # source, the probe's launch entry and kernel)
 KERNELS = {
@@ -399,12 +514,16 @@ KERNELS = {
                LADDER_VARIANT, "probe_ladder_launch", "probe_ladder_kernel"),
     "vinit": ("verify.cu", "verify_init_launch", "verify_init_kernel",
               VINIT_VARIANT, "probe_vinit_launch", "probe_vinit_kernel"),
+    "fold4": ("basemult.cu", "basemult_launch", "basemult_fold4_kernel",
+              FOLD4_VARIANT, "probe_fold4_launch", "probe_fold4_kernel"),
 }
 
 
 def probe_builds(what, variants, parent):
     """Start one nvcc per build of a kernel: the checkout's source as it
-    ships, each (threads, min_blocks) variant, and the parent's source.
+    ships, each (threads, min_blocks[, unroll]) variant (unroll: fold 4's
+    FOLD4_SCAN_UNROLL, entries per trip of its scan), and the parent's
+    source.
     Returns name -> (library, launch entry, kernel, (process, log))."""
     src, entry, kernel, variant, probe_entry, probe_kernel = KERNELS[what]
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
@@ -419,11 +538,14 @@ def probe_builds(what, variants, parent):
         so = PROBE_DIR / ("lib%s_%s.so" % (what, name))
         jobs[name] = (so, entry, kernel,
                       nvcc_build(csrc / src, so, include=csrc))
-    for threads, min_blocks in variants:
+    for threads, min_blocks, *unroll in variants:
         name = "%s_t%d_m%d" % (what, threads, min_blocks)
-        so = PROBE_DIR / ("lib%s.so" % name)
         flags = ["-DPROBE_THREADS=%d" % threads,
                  "-DPROBE_MIN_BLOCKS=%d" % min_blocks]
+        if unroll:
+            name += "_u%d" % unroll[0]
+            flags.append("-DFOLD4_SCAN_UNROLL=%d" % unroll[0])
+        so = PROBE_DIR / ("lib%s.so" % name)
         jobs[name] = (so, probe_entry, probe_kernel,
                       nvcc_build(variant_src, so, flags=flags))
     return jobs
@@ -431,7 +553,7 @@ def probe_builds(what, variants, parent):
 
 def run_in_turns(what, jobs, argtypes, make_outputs, args_of, card):
     """Launch every build of `jobs` once (make_outputs() gives a build its
-    output tensors, args_of(outputs) the launch's arguments before the
+    output tensors, args_of(name, outputs) the launch's arguments before the
     stream), hold all outputs equal, then time the builds in turns. Each
     row: ptxas's report, the SASS opcodes of the whole kernel and of its
     longest loop, and the times."""
@@ -446,7 +568,7 @@ def run_in_turns(what, jobs, argtypes, make_outputs, args_of, card):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         outs[name] = make_outputs()
-        rc = fn(*args_of(outs[name]), stream())
+        rc = fn(*args_of(name, outs[name]), stream())
         if rc != 0:
             raise RuntimeError("%s launch failed: %d" % (name, rc))
         torch.cuda.synchronize()
@@ -457,7 +579,7 @@ def run_in_turns(what, jobs, argtypes, make_outputs, args_of, card):
     order = list(launches)
     for _ in range(ROUNDS):
         for name in order + order[::-1]:
-            args, fn = args_of(outs[name]), launches[name]
+            args, fn = args_of(name, outs[name]), launches[name]
             rows[name]["ms"].append(event_ms(lambda: fn(*args, stream())))
     for name, row in rows.items():
         row["best_ms"] = min(row["ms"])
@@ -486,8 +608,8 @@ def run_ladders(jobs, rng, card):
         "ladder", jobs, [ctypes.c_void_p] * 4 + [ctypes.c_int64,
                                                  ctypes.c_void_p],
         lambda: (torch.empty_like(u),),
-        lambda out: (out[0].data_ptr(), u.data_ptr(), k.data_ptr(), None,
-                     BATCH), card)
+        lambda name, out: (out[0].data_ptr(), u.data_ptr(), k.data_ptr(),
+                           None, BATCH), card)
 
 
 def run_vinits(jobs, rng, card):
@@ -500,8 +622,31 @@ def run_vinits(jobs, rng, card):
         lambda: (torch.empty((BATCH, 16, 160), dtype=torch.int8,
                              device="cuda"),
                  torch.empty(BATCH, dtype=torch.bool, device="cuda")),
-        lambda out: (out[0].data_ptr(), out[1].data_ptr(), pk.data_ptr(),
-                     BATCH), card)
+        lambda name, out: (out[0].data_ptr(), out[1].data_ptr(),
+                           pk.data_ptr(), BATCH), card)
+
+
+def run_fold4s(jobs, parent, rng, card):
+    """The fold-4 builds in the "u_bytes" mode on the digits of random
+    clamped scalars, no zr and no BP (the longest loop is one step). A build
+    gets the table its launch reads: the word table, or the packed table for
+    a parent whose basemult_fold4_kernel ran every mode on the 13-bit lane
+    (one with no basemult_fold4_limbs_kernel)."""
+    dev = torch.device("cuda")
+    sk = torch.from_numpy(rng.integers(0, 256, (BATCH, 32), np.uint8))
+    cut = fold.cut4_bytes(codec.clamp(sk.to(dev))).contiguous()
+    mode = edwards_kernel.MODES["u_bytes"]
+    tables = {name: edwards_kernel.word_table(4, dev) for name in jobs}
+    if parent is not None and "basemult_fold4_limbs_kernel" not in (
+            Path(parent) / "curve25519_tpu_torch/ops/cuda/csrc/basemult.cu"
+            ).read_text():
+        tables["parent"] = edwards_kernel.packed_table(4, dev)
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    return run_in_turns(
+        "fold4", jobs, [vp, vp, vp, i64, vp, i64, vp, i32, i32, i64, vp],
+        lambda: (torch.empty((BATCH, 32), dtype=torch.uint8, device=dev),),
+        lambda name, out: (out[0].data_ptr(), cut.data_ptr(), None, 0, None,
+                           0, tables[name].data_ptr(), 4, mode, BATCH), card)
 
 
 def card_line():
@@ -514,13 +659,18 @@ def card_line():
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="root of another checkout whose "
-                    "ladder.cu and verify.cu are timed beside this one's")
+                    "ladder.cu, verify.cu and basemult.cu are timed beside "
+                    "this one's")
     ap.add_argument("--variants", default="64:1,128:4",
                     help="threads:min_blocks builds of this checkout's "
                     "ladder lane")
     ap.add_argument("--vinit-variants", default="128:3,64:6,256:2",
                     help="threads:min_blocks builds of this checkout's "
                     "Verify_Init lane")
+    ap.add_argument("--fold4-variants", default="128:4:2,128:4:1,256:2:1",
+                    help="threads:min_blocks[:unroll] builds of this "
+                    "checkout's fold-4 byte-mode lane (0: no minimum; "
+                    "unroll: entries per trip of its scan)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ladder_probe needs a CUDA card")
@@ -535,14 +685,17 @@ def main(argv=None):
     so, job = start_cores_build()
     ladders = probe_builds("ladder", pairs(args.variants), args.parent)
     vinits = probe_builds("vinit", pairs(args.vinit_variants), args.parent)
+    fold4s = probe_builds("fold4", pairs(args.fold4_variants), args.parent)
     wait_all(dict(cores=job, **{"ladder " + n: j[3]
                                 for n, j in ladders.items()},
-                  **{"vinit " + n: j[3] for n, j in vinits.items()}))
+                  **{"vinit " + n: j[3] for n, j in vinits.items()},
+                  **{"fold4 " + n: j[3] for n, j in fold4s.items()}))
     print("probe builds: %.1f s wall" % (time.perf_counter() - t0))
     print(json.dumps({"card": card, "batch": BATCH,
                       "cores": run_cores(so, job[1], rng, card),
                       "ladders": run_ladders(ladders, rng, card),
-                      "vinits": run_vinits(vinits, rng, card)}))
+                      "vinits": run_vinits(vinits, rng, card),
+                      "fold4s": run_fold4s(fold4s, args.parent, rng, card)}))
 
 
 if __name__ == "__main__":
