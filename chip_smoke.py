@@ -57,7 +57,8 @@ nothing of JAX or of the JAX package. Phases, each printing a line:
    and read just after: verify_init, verify_check against that context,
    verify_check of one key's signatures against its unbatched context, and
    the one-shot verify; every valid lane must verify and every tampered lane
-   fail; then each verify kernel timed against its plain version;
+   fail; then each verify kernel timed against its plain version, and the
+   one-shot kernel against Verify_Init and the multiply back to back;
 12. the rest of the single-device API on the card: sign_ragged and
    verify_ragged of 65,536 messages of 0-1,200 bytes (10 SHA-512 block
    buckets, both sign routes), each driven with the launch counts set to 0
@@ -1572,6 +1573,11 @@ def phase_verify_main(dev, rng, card, counts, bound, batch=MAIN_BATCH):
                            batch * (32 + 128 + 256 + 32 + 1)),
     }
     rows = time_kernels(cases, batch, card, 11, bound)
+    two = rows["verify_init_kernel"]["ms"] + rows["poly_kernel"]["ms"]
+    print("phase 11 [%s]: oneshot_kernel %.3f ms against verify_init_kernel "
+          "+ poly_kernel %.3f ms, B=%d (the fused kernel %s)"
+          % (card, rows["oneshot_kernel"]["ms"], two, batch,
+             "no slower" if rows["oneshot_kernel"]["ms"] <= two else "slower"))
     for label, fn, args in (
             ("verify_init", ed25519.verify_init, (pk,)),
             ("verify_check", ed25519.verify_check, (ctx, sig, msg)),

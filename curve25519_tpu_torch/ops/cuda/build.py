@@ -10,10 +10,13 @@ loaded with ctypes).
   anew, one nvcc process per source, all started together, and returns per
   library its build seconds and, per kernel, ptxas's registers, spills and
   stack; the compiler output is kept in ``_build/<name>.log``.
-- ``build_host(out_dir)`` compiles all sources with g++ into one library
-  whose ``*_host`` entries run the per-lane kernel code on the CPU (unless
-  it is newer than every source); the CPU tests load it with
+- ``build_host(out_dir=None)`` compiles all sources with g++ into one
+  library whose ``*_host`` entries run the per-lane kernel code on the CPU
+  (unless it is newer than every source); the CPU tests load it with
   ``load_host``. The compiler output is kept in ``libport_host.log``.
+  Without ``out_dir`` the library goes to a directory of the system's temp
+  directory named by a hash of the sources and flags, so the processes of
+  one test run (modules, workers) build it once and share it.
 
 Each build holds an exclusive lock on ``lock`` in its output directory
 from the stale check to the last read of its log, so processes that share
@@ -26,10 +29,12 @@ import contextlib
 import ctypes
 import fcntl
 import functools
+import hashlib
 import os
 import re
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -202,13 +207,25 @@ def launch(name, fn, device, *args):
                            % (fn, lib.cuda_error_string(rc).decode()))
 
 
-def build_host(out_dir):
-    """Compile all kernel sources with g++ into out_dir, unless its library
-    is newer than every source; returns the path of the shared library.
-    A failed build raises with the compiler's output."""
+def _host_dir():
+    """The shared directory of build_host(): under the system's temp
+    directory, named by a hash of every source and of the g++ flags."""
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    for src in sorted(CSRC.iterdir()):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return Path(tempfile.gettempdir()) / "curve25519_tpu_torch_host" / \
+        h.hexdigest()[:16]
+
+
+def build_host(out_dir=None):
+    """Compile all kernel sources with g++ into out_dir (default _host_dir()),
+    unless its library is newer than every source; returns the path of the
+    shared library. A failed build raises with the compiler's output."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found")
+    if out_dir is None:
+        out_dir = _host_dir()
     so = Path(out_dir) / "libport_host.so"
     with _build_lock(out_dir):
         if not _stale(so):
@@ -259,6 +276,4 @@ def load_host(so_path):
     lib.oneshot_host.restype = None
     lib.oneshot_scratch_rows.argtypes = [_i64, _int]
     lib.oneshot_scratch_rows.restype = ctypes.c_int
-    lib.sqrt_ratio_host.argtypes = [_vp, _vp, _vp, _vp, _i64]
-    lib.sqrt_ratio_host.restype = None
     return lib

@@ -17,9 +17,7 @@
 // limbs ypx ++ ymx ++ t2d), 32 words per entry (the last two zero), which
 // halves the selects of a gather. The sign kernel and the fold-8 base
 // multiply do the same read as an int8 one-hot product on the tensor cores
-// (gather_mma.cuh). Verify's
-// digits of s are public, so it reads the one entry it needs by index
-// instead (load_pa, csrc/verify_lane.cuh).
+// (gather_mma.cuh).
 
 #pragma once
 
@@ -40,19 +38,6 @@ struct Ext {
 FE_HD Fe ed_di() {
   constexpr int32_t t[NLIMBS] = {6211, 3663, 7603, 484,  606,  2583, 2533, 4872, 7638, 4186,
                                  5081, 7027, 4428, 2832, 3244, 6600, 5333, 5776, 1055, 129};
-  return fe_const(t);
-}
-
-// d and 2d mod p (config.ED_D, config.ED_2D).
-FE_HD Fe ed_d() {
-  constexpr int32_t t[NLIMBS] = {6307, 6859, 4740, 5787, 5982, 3157, 1287, 2472, 4106, 3,
-                                 6694, 3827, 1943, 928,  3635, 8142, 2927, 1905, 219,  164};
-  return fe_const(t);
-}
-
-FE_HD Fe ed_2d() {
-  constexpr int32_t t[NLIMBS] = {4441, 5527, 1289, 3383, 3773, 6315, 2574, 4944, 20,   7,
-                                 5196, 7655, 3886, 1856, 7270, 8092, 5855, 3810, 438,  72};
   return fe_const(t);
 }
 
@@ -115,42 +100,6 @@ FE_HD Ext add_pe(const Ext& p, const int32_t* q) {
   return add_pe(p, e);
 }
 
-// add_pe with Q read a coordinate at a time: q.coord<c>() gives ypx, ymx,
-// t2d or z2 (c = 0..3) just before the multiply that takes it, so no more
-// than one coordinate of Q is live beside P (the double-scalar multiply
-// decodes its q_table entries so, csrc/poly.cu).
-template <class Q>
-FE_HD Ext add_pe_with(const Ext& p, const Q& q) {
-  const Fe a = mul(sub(p.y, p.x), q.template coord<1>());
-  const Fe b = mul(add(p.y, p.x), q.template coord<0>());
-  const Fe c = mul(p.t, q.template coord<2>());
-  const Fe d = mul(p.z, q.template coord<3>());
-  const Fe e = sub(b, a);
-  const Fe h = add(b, a);
-  const Fe f = sub(d, c);
-  const Fe g = add(d, c);
-  return {mul(e, f), mul(h, g), mul(g, f), mul(e, h)};
-}
-
-// Reads N words from a 16-byte aligned address (16-byte loads on the
-// device), such as one packed table entry.
-template <int N>
-FE_HD void load_words(uint32_t (&w)[N], const uint32_t* src) {
-#ifdef __CUDA_ARCH__
-  const uint4* row = reinterpret_cast<const uint4*>(src);
-#pragma unroll
-  for (int q = 0; q < N / 4; q++) {
-    const uint4 v = row[q];
-    w[4 * q] = v.x;
-    w[4 * q + 1] = v.y;
-    w[4 * q + 2] = v.z;
-    w[4 * q + 3] = v.w;
-  }
-#else
-  for (int k = 0; k < N; k++) w[k] = src[k];
-#endif
-}
-
 // The 60 limbs ypx ++ ymx ++ t2d of packed entry words.
 FE_HD void unpack_pa(Fe& ypx, Fe& ymx, Fe& t2d, const uint32_t (&acc)[kEntryWords]) {
   int32_t limb[3 * NLIMBS];
@@ -201,14 +150,6 @@ struct ScanGather {
     gather<NENT>(ypx, ymx, t2d, tbl, idx);
   }
 };
-
-// Indexed fetch of entry `idx`: for PUBLIC digits only (verify's s), where
-// the address may depend on the digit.
-FE_HD void load_pa(Fe& ypx, Fe& ymx, Fe& t2d, const uint32_t* tbl, int32_t idx) {
-  uint32_t w[kEntryWords];
-  load_words(w, tbl + idx * kEntryWords);
-  unpack_pa(ypx, ymx, t2d, w);
-}
 
 // Folding base multiply S = a*G from NCUTS digits (32 for fold 8 over a
 // 256-entry table, 64 for fold 4 over 16 entries): the randomized start

@@ -1,8 +1,9 @@
 // edwards25519_wide.cuh -- twisted-Edwards point arithmetic for one lane on
 // the wide field core (fe25519_wide.cuh: ten 32-bit limbs, radix 2^25.5).
 //
-// The point code of the Verify_Init kernel (csrc/verify.cu) and of the
-// fold-4 base multiply's byte modes (csrc/basemult.cu). Each function
+// The point code of the verify kernels (csrc/verify.cu, poly.cu and
+// oneshot.cu, through verify_lane.cuh) and of the fold-4 base multiply's
+// byte modes (csrc/basemult.cu, through fold4_wide.cuh). Each function
 // computes, coordinate by coordinate, the same field element as its
 // counterpart in edwards25519.cuh and models/edwards.py: the same formulas,
 // which scale (X : Y : Z : T) alike, so the q_table's canonical limbs come
@@ -132,6 +133,27 @@ FE_HD Ext add_pa(const Ext& p, const Fe& ypx, const Fe& ymx, const Fe& t2d) {
   const Fe f = sub(d, c);
   const Fe g = add(d, c);
   return {mul(e, f), mul(h, g), mul(g, f), mul(e, h)};
+}
+
+// P as add_pe's P: (Y+X, Y-X, T, Z), from TIGHT coordinates.
+struct ExtReader {
+  const Ext& s;
+
+  template <int C>
+  FE_HD Fe coord() const {
+    if constexpr (C == 0) return add(s.y, s.x);
+    if constexpr (C == 1) return sub(s.y, s.x);
+    if constexpr (C == 2) return s.t;
+    return s.z;
+  }
+};
+
+// The compressed encoding of P's affine point (models/edwards.pack): y/z's
+// canonical bytes with the parity of x/z in bit 255, one inversion.
+FE_HD void pack(uint8_t* out, const Ext& p) {
+  const Fe zi = fe_wide::inv(p.z);
+  fe_wide::to_bytes(out, mul(p.y, zi));
+  out[31] |= (uint8_t)((canon(mul(p.x, zi)).v[0] & 1) << 7);
 }
 
 // Ext -> PE form (models/edwards.to_pe); LOOSE coordinates.

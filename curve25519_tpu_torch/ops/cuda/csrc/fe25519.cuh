@@ -3,9 +3,9 @@
 //
 // Replaces the in-kernel field core of the TPU package,
 // curve25519_tpu/ops/pallas/fe_tile.py (t_add, t_sub, t_neg, t_mul, t_sqr,
-// t_mul_small_add, t_select, t_inv, t_pow2523, t_is_zero, t_canon,
-// t_norm_to_bytes, t_to_bytes, t_pack_point, and verify_kernel._t_sqrt_ratio),
-// and the byte->limb
+// t_mul_small_add, t_select, t_inv, t_canon, t_norm_to_bytes, t_to_bytes,
+// t_pack_point; t_pow2523, t_is_zero and verify_kernel._t_sqrt_ratio, which
+// only verify uses, are fe25519_wide.cuh's), and the byte->limb
 // decode sc_tile.limbs_from_byte_rows. Where those work on [20, 8, 128] tiles
 // of 1024 lanes, every function here works on the 20 limbs of ONE lane, held
 // in registers: the CUDA kernel runs one lane per thread.
@@ -185,13 +185,6 @@ FE_HD Fe inv(const Fe& x) {
   return mul(sqr_times(t, 5), x11);           // (2^250 - 1) * 2^5 + 11
 }
 
-// x^(2^252 - 3) = x^((p-5)/8) (ops/fe.py pow2523, fe_tile.t_pow2523).
-FE_HD Fe pow2523(const Fe& x) {
-  Fe x11;
-  const Fe t = chain_2_250(x, x11);
-  return mul(sqr_times(t, 2), x);             // (2^250 - 1) * 4 + 1
-}
-
 // Exact sequential signed carry: d gets digits in [0, 2^13); returns the
 // carry out of limb 19.
 FE_HD int32_t carry_seq(Fe& d, const Fe& x) {
@@ -225,43 +218,12 @@ FE_HD Fe canon(const Fe& x) {
   return select(uc + 1, ud, td);
 }
 
-// 1 where x == 0 (mod p), else 0 (ops/fe.py is_zero, fe_tile.t_is_zero).
-FE_HD int32_t is_zero(const Fe& x) {
-  const Fe c = canon(x);
-  int32_t acc = 0;
-#pragma unroll
-  for (int i = 0; i < NLIMBS; i++) acc |= c.v[i];
-  return acc == 0;
-}
-
 // A constant's limbs.
 FE_HD Fe fe_const(const int32_t (&t)[NLIMBS]) {
   Fe r;
 #pragma unroll
   for (int i = 0; i < NLIMBS; i++) r.v[i] = t[i];
   return r;
-}
-
-// sqrt(-1) mod p (config.SQRT_M1).
-FE_HD Fe sqrt_m1() {
-  constexpr int32_t t[NLIMBS] = {176,  4213, 2514, 7222, 3150, 4668, 5311, 213,  792,  6522,
-                                 5609, 7159, 2451, 1664, 3245, 7137, 4033, 1026, 201,  87};
-  return fe_const(t);
-}
-
-// x = sqrt(u/v) where u/v is a square, with ok = 1 there and 0 elsewhere
-// (ops/fe.py sqrt_ratio, verify_kernel._t_sqrt_ratio): x = u v^3 (u v^7)^((p-5)/8),
-// then the sqrt(-1) fix-up, both checks by is_zero.
-FE_HD Fe sqrt_ratio(const Fe& u, const Fe& v, int32_t& ok) {
-  const Fe v2 = sqr(v);
-  const Fe v3 = mul(v2, v);
-  const Fe a = mul(u, v3);                    // u v^3
-  const Fe b = mul(a, sqr(v2));               // u v^7
-  Fe x = mul(pow2523(b), a);
-  const int32_t good = is_zero(sub(mul(sqr(x), v), u));
-  x = select(good, x, mul(x, sqrt_m1()));
-  ok = good | is_zero(sub(mul(sqr(x), v), u));
-  return x;
 }
 
 // Normalized limbs (digits in [0, 2^13), value < 2^256) -> little-endian

@@ -28,7 +28,6 @@ using ed_wide::add_pa;
 using ed_wide::dbl;
 using ed_wide::Ext;
 using fe_wide::add;
-using fe_wide::canon;
 using fe_wide::Fe;
 using fe_wide::from_words;
 using fe_wide::inv;
@@ -83,19 +82,6 @@ FE_HD void gather(Fe& ypx, Fe& ymx, Fe& t2d, const uint32_t* tbl, int32_t idx) {
   t2d = from_words(acc[2]);
 }
 
-// S as ed_wide::add_pe's P: (Y+X, Y-X, T, Z).
-struct ExtReader {
-  const Ext& s;
-
-  template <int C>
-  FE_HD Fe coord() const {
-    if constexpr (C == 0) return add(s.y, s.x);
-    if constexpr (C == 1) return sub(s.y, s.x);
-    if constexpr (C == 2) return s.t;
-    return s.z;
-  }
-};
-
 // BP's 80 signed-weak 13-bit limbs (ypx, ymx, t2d, z2) as add_pe's Q, a
 // coordinate converted when it is read.
 struct WeakPeReader {
@@ -126,11 +112,9 @@ FE_HD void lane(uint8_t* out, const int32_t* cut, const int32_t* zr, const int32
     gather(ypx, ymx, t2d, tbl, cut[i]);
     s = add_pa(s, ypx, ymx, t2d);
   }
-  if (bp) s = ed_wide::add_pe(ExtReader{s}, WeakPeReader{bp});
+  if (bp) s = ed_wide::add_pe(ed_wide::ExtReader{s}, WeakPeReader{bp});
   if (pk) {
-    const Fe zi = inv(s.z);
-    to_bytes(out, mul(s.y, zi));
-    out[31] |= (uint8_t)((canon(mul(s.x, zi)).v[0] & 1) << 7);
+    ed_wide::pack(out, s);
   } else {
     to_bytes(out, mul(add(s.z, s.y), inv(sub(s.z, s.y))));
   }

@@ -146,7 +146,7 @@ extern "C" void x25519_ladder_host(uint8_t* out, const uint8_t* u, const uint8_t
 
 enum FeOp {
   FE_ADD, FE_SUB, FE_NEG, FE_MUL, FE_SQR, FE_MUL_SMALL_ADD, FE_CANON, FE_INV,
-  FE_TO_BYTES, FE_FROM_BYTES, FE_POW2523
+  FE_TO_BYTES, FE_FROM_BYTES
 };
 
 // One op of the 13-bit core over n lanes. x, y, out: [n, 20] int32 limbs, except that
@@ -175,7 +175,6 @@ extern "C" int fe25519_op_host(int op, int32_t* out, const int32_t* x,
         case FE_MUL_SMALL_ADD: r = mul_small_add(a, A24, b); break;
         case FE_CANON: r = canon(a); break;
         case FE_INV: r = inv(a); break;
-        case FE_POW2523: r = pow2523(a); break;
         case FE_TO_BYTES: {
           int32_t enc[32];
           to_bytes(enc, a);

@@ -11,24 +11,24 @@
 // Where the TPU padded to 1024-lane tiles, each thread owns one lane and the
 // grid masks lane < n.
 //
-// What bounds it on this card: int32 multiply-add issue, ~990 field
-// multiplies and ~510 squarings per lane with the inversion; the bytes (the
-// 2.5 KB table per lane, read in parts) are far below. At 8 warps per SM (255
-// registers a thread) neither the q_table reads nor their decode cost time
-// (cp.async slots and decode at use alone gained nothing, PERF.md); what the
-// SM lacked was warps to hide the latency of dependent multiply-adds. The
-// design runs 12 warps per SM (three blocks of 128, at most 168 registers a
-// thread) with no spill:
-// - poly_lane's two loops are one, so the code of a double and a PE add
-//   appears once (a smaller allocation, and half the loop code to fetch);
-// - the PE add reads each coordinate of the entry (ypx, ymx, t2d, z2: 5
-//   words of each plane, four 16-byte loads) from the lane's row or the
-//   shared table just before the multiply that takes it (add_pe_with,
-//   PlaneCoord), so at most 20 of the entry's 80 limbs are live beside the
-//   point; a limb is two byte permutes and a shift-add.
-// The base table of s, the packed fold-8 table, is copied once per block into
-// shared memory and read by index (load_pa); poly_shared_kernel copies its one
-// q_table there too.
+// What bounds it on this card: the field products, ~990 multiplies and
+// ~510 squarings per lane with the inversion; the bytes (the 2.5 KB table
+// per lane, read in parts) are far below. What the design does about it:
+// the lane runs on the wide field core, fe25519_wide.cuh (ten 32-bit limbs
+// in radix 2^25.5, a multiply 100 `IMAD.WIDE.U32`), with the point formulas
+// of edwards25519_wide.cuh, as Verify_Init does. The 13-bit radix stays only
+// where an entry is read: each coordinate of a PE add's entry (5 words of
+// each plane, four 16-byte loads) is decoded and converted to wide limbs
+// just before the multiply that takes it (PlaneEntry), so at most one
+// coordinate of the entry is live beside the point. Both loops of the
+// multiply are one rolled loop, so the code of a double and a PE add
+// appears once. At most 168 registers a thread under
+// __launch_bounds__(128, 3): three blocks, 12 warps, per SM. The lane fits
+// 128 registers with no spill too, but at 16 warps per SM it ran 5% slower
+// (tools/ladder_probe.py, PERF.md).
+// The base table of s, edwards_kernel.word_table(8) (24 KB), is copied once
+// per block into shared memory and read by index; poly_shared_kernel copies
+// its one q_table there too.
 //
 // Built by curve25519_tpu_torch/ops/cuda/build.py: with nvcc into a shared
 // library that ctypes loads (poly_launch), and with g++ for the CPU tests
@@ -50,33 +50,31 @@ __global__ void __launch_bounds__(kBlock, 3)
 poly_kernel(uint8_t* __restrict__ out, const int32_t* __restrict__ u,
             const int32_t* __restrict__ v, const uint32_t* __restrict__ planes,
             const uint32_t* __restrict__ table, int64_t n) {
-  __shared__ __align__(16) uint32_t tbl[kTableWords];
-  copy_shared(tbl, table, kTableWords);
+  __shared__ __align__(16) uint32_t tbl[kBaseWords];
+  copy_shared(tbl, table, kBaseWords);
   __syncthreads();
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  PlaneRows qt{const_cast<uint32_t*>(planes) + kQtWords * lane};
-  poly_lane(out + 32 * lane, u + 32 * lane, v + 64 * lane, qt, PlainPa{tbl});
+  poly_lane(out + 32 * lane, u + 32 * lane, v + 64 * lane, planes + kQtWords * lane, tbl);
 }
 
 __global__ void __launch_bounds__(kBlock, 3)
 poly_shared_kernel(uint8_t* __restrict__ out, const int32_t* __restrict__ u,
                    const int32_t* __restrict__ v, const uint32_t* __restrict__ planes,
                    const uint32_t* __restrict__ table, int64_t n) {
-  __shared__ __align__(16) uint32_t tbl[kTableWords];
+  __shared__ __align__(16) uint32_t tbl[kBaseWords];
   __shared__ __align__(16) uint32_t qs[kQtWords];
-  copy_shared(tbl, table, kTableWords);
+  copy_shared(tbl, table, kBaseWords);
   copy_shared(qs, planes, kQtWords);
   __syncthreads();
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  PlaneRows qt{qs};
-  poly_lane(out + 32 * lane, u + 32 * lane, v + 64 * lane, qt, PlainPa{tbl});
+  poly_lane(out + 32 * lane, u + 32 * lane, v + 64 * lane, qs, tbl);
 }
 
 // out: [n, 32] uint8; u: [n, 32] and v: [n, 64] int32 digits; planes: the
 // lanes' [n, 16, 160] int8 q_tables, or one [16, 160] table when shared != 0
-// (16-byte aligned); table: the packed folding-8 table (16-byte aligned).
+// (16-byte aligned); table: the fold-8 word table (16-byte aligned).
 // Launches on `stream`, allocates nothing, does not synchronize and returns
 // cudaGetLastError() (0 on success).
 extern "C" int poly_launch(void* out, const void* u, const void* v, const void* planes,
@@ -99,8 +97,6 @@ extern "C" const char* cuda_error_string(int code) {
 // Host entry: the same per-lane code on the CPU, for the tests.
 extern "C" void poly_host(uint8_t* out, const int32_t* u, const int32_t* v,
                           const uint32_t* planes, int shared, const uint32_t* table, int64_t n) {
-  for (int64_t i = 0; i < n; i++) {
-    PlaneRows qt{const_cast<uint32_t*>(planes) + (shared ? 0 : kQtWords * i)};
-    poly_lane(out + 32 * i, u + 32 * i, v + 64 * i, qt, PlainPa{table});
-  }
+  for (int64_t i = 0; i < n; i++)
+    poly_lane(out + 32 * i, u + 32 * i, v + 64 * i, planes + (shared ? 0 : kQtWords * i), table);
 }

@@ -67,7 +67,8 @@ def mma_table(device):
 
 @functools.lru_cache(maxsize=None)
 def word_table(nfolds, device):
-    """The folding table as the wide fold-4 lane reads it, on `device`: per
+    """The folding table as the wide lanes read it (fold 4's byte modes,
+    nfolds=4; verify's double-scalar multiply, nfolds=8), on `device`: per
     entry 24 int32 words, each of ypx, ymx and t2d as the 8 little-endian
     32-bit words of its canonical value (the tables hold canonical limbs)."""
     t = tables.folding8_table() if nfolds == 8 else tables.folding4_table()

@@ -10,10 +10,12 @@ curve25519_tpu/ops/pallas/verify_kernel.py, and their plain versions.
   (ops/fold), against one q_table per lane (planes [..., 16, 160]) or, when
   planes.ndim == 2, one q_table for every lane (the shared kernel).
 - ``verify_oneshot(pk, u, v)``: (enc(R') [..., 32] uint8, ok [...] bool),
-  the two in one launch (csrc/oneshot.cu): at most one block per SM, each
-  looping over lane tiles, with a scratch row for the q_table of each of
-  its threads that the launch alone uses. The library sizes the scratch
+  the two in one launch (csrc/oneshot.cu): persistent blocks, one per SM,
+  each looping over lane tiles, with a scratch row for the q_table of each
+  of its threads that the launch alone uses. The library sizes the scratch
   (``oneshot_scratch_rows``) and takes its grid from it.
+
+The multiply reads the folding-8 table as ``edwards_kernel.word_table(8)``.
 
 Each has a ``*_plain`` version on models/edwards and models/tables. CUDA
 tensors launch the kernels (or raise); CPU tensors run the plain versions.
@@ -131,7 +133,7 @@ def poly_mult(u, v, planes):
     out = torch.empty((n, 32), dtype=torch.uint8, device=u.device)
     build.launch("poly", "poly_launch", u.device, out.data_ptr(),
                  u.data_ptr(), v.data_ptr(), planes.data_ptr(), int(shared),
-                 edwards_kernel.packed_table(8, u.device).data_ptr(), n)
+                 edwards_kernel.word_table(8, u.device).data_ptr(), n)
     launches["poly_shared" if shared else "poly"] += 1
     return unflatten(out)
 
@@ -164,6 +166,6 @@ def verify_oneshot(pk, u, v):
     build.launch("oneshot", "oneshot_launch", pk.device, out.data_ptr(),
                  ok.data_ptr(), scratch.data_ptr(), rows, pk.data_ptr(),
                  u.data_ptr(), v.data_ptr(),
-                 edwards_kernel.packed_table(8, pk.device).data_ptr(), n)
+                 edwards_kernel.word_table(8, pk.device).data_ptr(), n)
     launches["oneshot"] += 1
     return unflatten(out), unflatten(ok)

@@ -54,10 +54,10 @@ def rng():
 
 
 @pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def lib():
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel sources for the CPU")
-    return build.load_host(build.build_host(tmp_path_factory.mktemp("host")))
+    return build.load_host(build.build_host())
 
 
 def rand_keys(rng, n):
@@ -99,15 +99,19 @@ def test_tables_and_gathers_equal_jax(rng):
 
 
 def _check_word_table():
-    """word_table(4), the wide fold-4 lane's layout: entry e's words 8c..8c+7
-    are the little-endian words of coordinate c's value in
-    tables.folding4_table(), each below p."""
-    words = to_numpy(edwards_kernel.word_table(4, torch.device("cpu")))
-    words = words.view(np.uint32).reshape(16, 3, 8)
-    for entry, limbs in zip(words, tables.folding4_table()):
-        for w, c in zip(entry, limbs):
-            value = sum(int(v) << 32 * k for k, v in enumerate(w))
-            assert value == limbs_to_int(c) < P
+    """word_table, the wide lanes' layout (fold 4's byte modes, verify's
+    double-scalar multiply with fold 8): entry e's words 8c..8c+7 are the
+    little-endian words of coordinate c's value in the folding table, each
+    below p."""
+    for nfolds, table in ((4, tables.folding4_table()),
+                          (8, tables.folding8_table())):
+        words = to_numpy(edwards_kernel.word_table(nfolds,
+                                                   torch.device("cpu")))
+        words = words.view(np.uint32).reshape(len(table), 3, 8)
+        for entry, limbs in zip(words, table):
+            for w, c in zip(entry, limbs):
+                value = sum(int(v) << 32 * k for k, v in enumerate(w))
+                assert value == limbs_to_int(c) < P, nfolds
 
 
 @pytest.mark.parametrize("op", ["double", "add_pe", "add_pa"])

@@ -12,16 +12,17 @@ code is held, exactly, against:
 - the plain ladder (models/montgomery.point_multiply) and the Python oracle
   (curve25519_tpu.refmodel), byte for byte.
 
-The ladder, Verify_Init and the fold-4 byte modes run on another core,
-ops/cuda/csrc/fe25519_wide.cuh (ten 32-bit limbs in radix 2^25.5), the
-latter two through the Edwards formulas of csrc/edwards25519_wide.cuh. Its
-checks are ``_check_wide_*`` helpers inside the tests below: an executable
-interval proof of its limb bounds (in the manner of tests/test_bounds.py)
-over one ladder step, the Verify_Init lane's ops and the fold-4 base
-multiply's byte-mode lane (csrc/basemult.cu), each of its ops
-through ``fe_wide_op_host`` against Python integers mod p, and the RFC
-7748 5.2 1,000-iteration vector through ``x25519_ladder_host``. None of
-them runs JAX.
+The ladder, the verify kernels and the fold-4 byte modes run on another
+core, ops/cuda/csrc/fe25519_wide.cuh (ten 32-bit limbs in radix 2^25.5),
+the latter two through the Edwards formulas of csrc/edwards25519_wide.cuh.
+Its checks are ``_check_wide_*`` helpers inside the tests below: an
+executable interval proof of its limb bounds (in the manner of
+tests/test_bounds.py) over one ladder step, the Verify_Init lane's ops, the
+double-scalar multiply's lane (csrc/verify_lane.cuh, in poly.cu and
+oneshot.cu) and the fold-4 base multiply's byte-mode lane
+(csrc/basemult.cu), each of its ops through ``fe_wide_op_host`` against
+Python integers mod p, and the RFC 7748 5.2 1,000-iteration vector through
+``x25519_ladder_host``. None of them runs JAX.
 
 The port's host core (curve25519_tpu_torch/native, a byte-equal copy of the
 JAX package's ref25519.cpp built with g++) is held against the JAX
@@ -109,10 +110,10 @@ def _free_xla_executables():
 
 
 @pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def lib():
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel sources for the CPU")
-    return build.load_host(build.build_host(tmp_path_factory.mktemp("host")))
+    return build.load_host(build.build_host())
 
 
 @pytest.fixture
@@ -590,6 +591,51 @@ def _check_wide_fold4_bounds():
         assert _within(_w_canon(out), [1 << w for w in W_WIDTH]), out
 
 
+def _w_poly_start(carry_x=True):
+    """poly_lane's start from a q_table entry (from_limbs13: canonical
+    digits): (weak_carry(ypx - ymx), weak_carry(ypx + ymx), z2, t2d / d);
+    carry_x=False leaves X = ypx - ymx as it is."""
+    entry = [(0, (1 << w) - 1) for w in W_WIDTH]
+    x = _w_sub(entry, entry)
+    if carry_x:
+        x = _w_weak_carry(x)
+    return (x, _w_weak_carry(_w_add(entry, entry)), entry,
+            _w_mul(entry, _W_CONST))
+
+
+def _check_wide_poly_bounds():
+    """The double-scalar multiply's lane (verify_lane.cuh's poly_lane, in
+    poly.cu and oneshot.cu) on interval limbs. The start from a q_table
+    entry: X and Y are a difference and a sum of canonical limbs, which dbl
+    does not take (its X + Y is squared, a LOOSE operand at most): both are
+    carried to TIGHT, and without the carry of X the doubling's 32-bit
+    pre-scaled operands overflow. One loop step on TIGHT state: dbl, the PA
+    add of a word-table entry (from_words: canonical digits), the PE add of
+    an entry read from the planes with P read as (Y+X, Y-X, T, Z). The
+    epilogue: one inversion of Z and the multiplies of the pk encode. Every
+    output of a step is TIGHT, so the 63 steps stay inside the invariant."""
+    canonical = [(0, (1 << w) - 1) for w in W_WIDTH]
+    tight = [(0, b - 1) for b in W_TIGHT]
+    start = _w_poly_start()
+    for c in start:
+        assert _within(c, W_TIGHT), c
+    for out in _w_dbl(start):
+        assert _within(out, W_TIGHT), out
+    with pytest.raises(AssertionError):
+        _w_dbl(_w_poly_start(carry_x=False))
+    state = (tight,) * 4
+    for out in _w_add_pa(_w_dbl(state), (canonical,) * 3):
+        assert _within(out, W_TIGHT), out
+    x, y, z, t = state
+    for out in _w_add_pe((_w_add(y, x), _w_sub(y, x), t, z),
+                         (canonical,) * 4):
+        assert _within(out, W_TIGHT), out
+    zi = _w_inv(z)
+    for out in (_w_mul(y, zi), _w_mul(x, zi)):
+        assert _within(out, W_TIGHT), out
+        assert _within(_w_canon(out), [1 << w for w in W_WIDTH]), out
+
+
 def _check_wide_core_bounds():
     """The executable bounds proof of fe25519_wide.cuh. Every 32-bit
     operand and sum and every 64-bit column, partial sum and carry of each
@@ -624,6 +670,7 @@ def _check_wide_core_bounds():
         assert _within(out, W_TIGHT), out
     _check_wide_edwards_bounds()
     _check_wide_fold4_bounds()
+    _check_wide_poly_bounds()
 
 
 def _w_value(limbs):

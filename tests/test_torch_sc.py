@@ -53,10 +53,10 @@ def rng():
 
 
 @pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def lib():
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel sources for the CPU")
-    return build.load_host(build.build_host(tmp_path_factory.mktemp("host")))
+    return build.load_host(build.build_host())
 
 
 def canonical(rng, n):

@@ -5,7 +5,8 @@ port's own signatures (valid, tampered R and S, a wrong message, a shorter
 msg_len, a key off the curve), as one batch of 16-byte messages, and digits
 and limbs from a seeded numpy generator. On the CPU the port runs the plain
 versions of the verify kernels (ops/cuda/verify_kernel.py); the g++ build
-of the kernels' lane code (csrc/verify.cu) is held against them.
+of the kernels' lane code (csrc/verify.cu, poly.cu, oneshot.cu) is held
+against them.
 
 The JAX side runs its CPU route once per module, in the `jax_ref` fixture:
 verify_init and unpack_point eagerly, verify_check and _poly_point_multiply
@@ -132,10 +133,10 @@ def jax_ref(batch, digits):
 
 
 @pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def lib():
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel sources for the CPU")
-    return build.load_host(build.build_host(tmp_path_factory.mktemp("host")))
+    return build.load_host(build.build_host())
 
 
 def t(a):
@@ -395,11 +396,10 @@ def test_ragged_equals_jax_sign_and_verify_ragged(monkeypatch):
 
 
 def test_host_kernels_equal_plain(lib, batch, digits):
-    """verify.cu's and oneshot.cu's lane code built with g++: Verify_Init
-    on the wide core (valid and invalid keys, the edge vectors, random
-    keys), the double-scalar multiply with per-lane and shared q_tables, the
-    one-shot kernel (the 13-bit Verify_Init) with its scratch layout, and
-    the 13-bit pow2523 and sqrt_ratio."""
+    """verify.cu's, poly.cu's and oneshot.cu's lane code (the wide core)
+    built with g++: Verify_Init (valid and invalid keys, the edge vectors,
+    random keys), the double-scalar multiply with per-lane and shared
+    q_tables, and the one-shot kernel with its scratch rows and sizing."""
     pk = np.ascontiguousarray(batch[0])
     u, v = (np.ascontiguousarray(d) for d in digits)
     n = len(pk)
@@ -410,56 +410,46 @@ def test_host_kernels_equal_plain(lib, batch, digits):
     np.testing.assert_array_equal(planes, to_numpy(want_planes))
     np.testing.assert_array_equal(ok.astype(bool), to_numpy(want_ok))
     assert not ok.all() and ok.any()
-    table = to_numpy(edwards_kernel.packed_table(8, torch.device("cpu")))
-    for shared in (False, True):
-        q = planes[3] if shared else planes
+    _check_poly_and_oneshot_host(lib, pk, u, v, planes, shared_lanes=(3,))
+    # the launch's scratch: a 512-thread block per 512 lanes, one per SM
+    assert [lib.oneshot_scratch_rows(m, 132) for m in (1, 512, 513, 1 << 40)
+            ] == [512, 512, 1024, 132 * 512]
+    _check_verify_init_host_random_keys(lib)
+
+
+def _check_poly_and_oneshot_host(lib, pk, u, v, planes, shared_lanes):
+    """poly_host with the lanes' q_tables and with the q_table of each lane
+    of `shared_lanes` for every lane, and oneshot_host, against
+    poly_mult_plain and verify_oneshot_plain; the one-shot scratch rows hold
+    the planes of Verify_Init."""
+    n = len(pk)
+    table = to_numpy(edwards_kernel.word_table(8, torch.device("cpu")))
+    for q in [planes] + [planes[i] for i in shared_lanes]:
+        q = np.ascontiguousarray(q)
         out = np.zeros((n, 32), np.uint8)
         lib.poly_host(out.ctypes.data, u.ctypes.data, v.ctypes.data,
-                      np.ascontiguousarray(q).ctypes.data, int(shared),
-                      table.ctypes.data, n)
+                      q.ctypes.data, int(q.ndim == 2), table.ctypes.data, n)
         want = verify_kernel.poly_mult_plain(t(u), t(v), t(q))
-        np.testing.assert_array_equal(out, to_numpy(want), err_msg=shared)
+        np.testing.assert_array_equal(out, to_numpy(want),
+                                      err_msg=str(q.shape))
     out = np.zeros((n, 32), np.uint8)
-    ok1 = np.zeros(n, np.uint8)
-    scratch = np.zeros((n, 16, 80), np.int16)
-    lib.oneshot_host(out.ctypes.data, ok1.ctypes.data, scratch.ctypes.data,
+    ok = np.zeros(n, np.uint8)
+    scratch = np.zeros((n, 16, 160), np.int8)
+    lib.oneshot_host(out.ctypes.data, ok.ctypes.data, scratch.ctypes.data,
                      pk.ctypes.data, u.ctypes.data, v.ctypes.data,
                      table.ctypes.data, n)
     want_r, want_ok = verify_kernel.verify_oneshot_plain(t(pk), t(u), t(v))
     np.testing.assert_array_equal(out, to_numpy(want_r))
-    np.testing.assert_array_equal(ok1.astype(bool), to_numpy(want_ok))
-    # the one-shot scratch row holds the q_table as int16 canonical limbs:
-    # the limbs lo + (hi << 7) of the int8 planes
-    limbs = planes[..., :80].astype(np.int16) + (planes[..., 80:].astype(
-        np.int16) << 7)
-    np.testing.assert_array_equal(scratch, limbs)
-    # the launch's scratch: a 256-thread block per 256 lanes, one per SM
-    assert [lib.oneshot_scratch_rows(m, 132) for m in (1, 256, 257, 1 << 40)
-            ] == [256, 256, 512, 132 * 256]
-
-    rng = np.random.default_rng(6)
-    x = rng.integers(jfe.WEAK_MIN, jfe.WEAK_MAX + 1, (8, 20), dtype=np.int32)
-    x[0] = 0
-    got = np.zeros_like(x)
-    assert lib.fe25519_op_host(10, got.ctypes.data, x.ctypes.data, None,
-                               len(x)) == 0          # FE_POW2523
-    np.testing.assert_array_equal(got, to_numpy(fe.pow2523(t(x))))
-    uu, vv = x.copy(), x[::-1].copy()
-    vv[1] = 0                                    # v = 0
-    uu[2] = to_numpy(fe.mul(fe.sqr(t(vv[2])), t(vv[2])))   # u/v = v^2
-    sx, sok = np.zeros_like(x), np.zeros(len(x), np.int32)
-    lib.sqrt_ratio_host(sx.ctypes.data, sok.ctypes.data, uu.ctypes.data,
-                        vv.ctypes.data, len(x))
-    wx, wok = fe.sqrt_ratio(t(uu), t(vv))
-    np.testing.assert_array_equal(sx, to_numpy(wx))
-    np.testing.assert_array_equal(sok.astype(bool), to_numpy(wok))
-    _check_verify_init_host_random_keys(lib)
+    np.testing.assert_array_equal(ok.astype(bool), to_numpy(want_ok))
+    np.testing.assert_array_equal(scratch, planes)
 
 
 def _check_verify_init_host_random_keys(lib):
     """verify.cu's Verify_Init (the wide core) on 32 random keys from a
     seeded generator, about half of them off the curve, and the all-0xFF
-    key: planes and flags equal to verify_init_plain's."""
+    key: planes and flags equal to verify_init_plain's. Then poly.cu's and
+    oneshot.cu's lanes on these keys: random digits, and the edge digits
+    (u, v) = (0, 0), (255, 15), (0, 15) and (255, 0) in every place."""
     pk = np.random.default_rng(10).integers(0, 256, (33, 32), dtype=np.uint8)
     pk[32] = 0xFF
     planes = np.zeros((len(pk), 16, 160), np.int8)
@@ -470,3 +460,12 @@ def _check_verify_init_host_random_keys(lib):
     np.testing.assert_array_equal(planes, to_numpy(want_planes))
     np.testing.assert_array_equal(ok.astype(bool), to_numpy(want_ok))
     assert 8 <= ok[:32].sum() <= 24, ok
+    rng = np.random.default_rng(11)
+    u = fold.cut8_bytes(from_numpy(rng.integers(0, 256, (len(pk), 32),
+                                                dtype=np.uint8)))
+    v = fold.cut4_limbs(sc.from_digest(from_numpy(rng.integers(
+        0, 256, (len(pk), 64), dtype=np.uint8))))
+    u, v = to_numpy(u).copy(), to_numpy(v).copy()
+    for lane, (du, dv) in enumerate(((0, 0), (255, 15), (0, 15), (255, 0))):
+        u[lane], v[lane] = du, dv
+    _check_poly_and_oneshot_host(lib, pk, u, v, planes, shared_lanes=(0, 32))

@@ -1,9 +1,12 @@
-"""Measure the X25519 ladder, Verify_Init and fold-4 base-multiply kernels
-and the field cores on one CUDA card.
+"""Measure the X25519 ladder, Verify_Init, fold-4 base-multiply, double-scalar
+multiply and one-shot verify kernels and the field cores on one CUDA card.
 
     python3 tools/ladder_probe.py [--parent DIR] [--variants 64:1,128:4]
                                   [--vinit-variants 128:3,64:6,256:2]
                                   [--fold4-variants 128:4:2,128:4:1,256:2:1]
+                                  [--poly-variants 128:4,256:2]
+                                  [--oneshot-variants 512:1:1:1,256:2:2:2]
+                                  [--only cores,ladder,vinit,poly,oneshot]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Prints one line per measurement and, last, one JSON object of them all;
@@ -22,7 +25,12 @@ builds into curve25519_tpu_torch/ops/cuda/_build/probe/ (git-ignored):
    the constant-time scan of the 16-entry table in shared memory, a table
    add): the 13-bit core's over the packed table (edwards_kernel.
    packed_table) and the wide core's over the word table (word_table,
-   csrc/fold4_wide.cuh).
+   csrc/fold4_wide.cuh). And one step of the double-scalar multiply per trip
+   (a doubling, a PA add of a fold-8 entry read by index, a PE add of a
+   q_table entry read from int8 planes, both tables in shared memory): the
+   wide core's as verify_lane.cuh's poly_lane does it (the word table, each
+   PE coordinate decoded just before its multiply), and the 13-bit core's
+   (the packed table, the entry decoded whole).
 2. Ladder builds: the checkout's csrc/ladder.cu as it ships; its lane
    function in a kernel of the probe's own at each `--variants`
    threads:min_blocks (block size and __launch_bounds__ minimum); and, with
@@ -43,6 +51,18 @@ builds into curve25519_tpu_torch/ops/cuda/_build/probe/ (git-ignored):
    another count of scan entries per loop trip (:unroll), and the parent's
    basemult_fold4_kernel, each on the table its launch reads, on 262,144
    random scalars' digits; the bytes must agree.
+5. Double-scalar multiply builds, the same way: the checkout's poly_kernel
+   (csrc/poly.cu, a q_table per lane), its lane (verify_lane.cuh's
+   poly_lane) at each `--poly-variants` threads:min_blocks, and the
+   parent's poly_kernel, each on the fold-8 table its launch reads, on the
+   planes of 262,144 random keys and random digits; the bytes must agree.
+6. One-shot verify builds, the same way: the checkout's oneshot_kernel
+   (csrc/oneshot.cu), its two phases at each `--oneshot-variants`
+   threads:min_blocks[:blocks per SM of the grid[:barriers[:balanced]]]
+   (persistent blocks as the shipped kernel, or 0: a block per tile, a
+   scratch row per lane; barriers after both phases, after Verify_Init
+   only as shipped, or none), and the parent's oneshot_kernel, on 262,144
+   random keys and digits; bytes and flags must agree.
 """
 
 import argparse
@@ -76,6 +96,7 @@ CORES_SRC = r"""
 #include "edwards25519.cuh"
 #include "edwards25519_wide.cuh"
 #include "fold4_wide.cuh"
+#include "verify_lane.cuh"
 #include <cuda_runtime.h>
 
 // Eight 32-bit words, lazy reduction by 2^256 = 38 (mod p): the reference
@@ -237,6 +258,71 @@ STEP_CHAIN(fe13_fold4, ed25519, 20, int32_t, ed25519::kEntryWords,
 STEP_CHAIN(wide_fold4, ed_wide, 10, uint32_t, fold4_wide::kWords,
            fold4_wide::gather)
 
+// One step of the double-scalar multiply per trip: P = 2P, P = P + entry
+// (t + it) & 255 of the fold-8 table, P = P + q_table entry (7t + it) & 15,
+// the table (WORDS an entry) and the q_table planes staged in shared memory.
+#define POLY_CHAIN(NAME, NS, N, T, WORDS, STEP)                             \
+  __global__ void __launch_bounds__(256) NAME(uint32_t* io,                 \
+                                              const uint32_t* table,        \
+                                              const uint32_t* planes,       \
+                                              int iters) {                  \
+    __shared__ __align__(16) uint32_t tbl[256 * WORDS];                     \
+    __shared__ __align__(16) uint32_t qt[kQtWords];                         \
+    for (int i = threadIdx.x; i < 256 * WORDS; i += blockDim.x)             \
+      tbl[i] = table[i];                                                    \
+    for (int i = threadIdx.x; i < kQtWords; i += blockDim.x)                \
+      qt[i] = planes[i];                                                    \
+    __syncthreads();                                                        \
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;                    \
+    NS::Ext p;                                                              \
+    _Pragma("unroll") for (int i = 0; i < N; i++) {                         \
+      p.x.v[i] = (T)io[(4 * t) * N + i];                                    \
+      p.y.v[i] = (T)io[(4 * t + 1) * N + i];                                \
+      p.z.v[i] = (T)io[(4 * t + 2) * N + i];                                \
+      p.t.v[i] = (T)io[(4 * t + 3) * N + i];                                \
+    }                                                                       \
+    _Pragma("unroll 1") for (int it = 0; it < iters; it++) {                \
+      const int b = (t + it) & 255, e = (7 * t + it) & 15;                  \
+      STEP;                                                                 \
+    }                                                                       \
+    _Pragma("unroll") for (int i = 0; i < N; i++) {                         \
+      io[(4 * t) * N + i] = (uint32_t)p.x.v[i];                             \
+      io[(4 * t + 1) * N + i] = (uint32_t)p.y.v[i];                         \
+      io[(4 * t + 2) * N + i] = (uint32_t)p.z.v[i];                         \
+      io[(4 * t + 3) * N + i] = (uint32_t)p.t.v[i];                         \
+    }                                                                       \
+  }
+
+// The wide step: poly_lane's loop body.
+#define WIDE_POLY_STEP                                                      \
+  p = ed_wide::dbl(p);                                                      \
+  fe_wide::Fe ypx, ymx, t2d;                                                \
+  load_base(ypx, ymx, t2d, tbl, b);                                         \
+  p = ed_wide::add_pa(p, ypx, ymx, t2d);                                    \
+  p = ed_wide::add_pe(ed_wide::ExtReader{p},                                \
+                      PlaneEntry{qt + e * kQtEntryWords})
+
+// The 13-bit step: the packed entry unpacked, the q_table entry's 80 limbs
+// decoded whole.
+#define FE13_POLY_STEP                                                      \
+  p = ed25519::dbl(p);                                                      \
+  fe25519::Fe ypx, ymx, t2d;                                                \
+  uint32_t w[ed25519::kEntryWords];                                         \
+  load_words(w, tbl + b * ed25519::kEntryWords);                            \
+  ed25519::unpack_pa(ypx, ymx, t2d, w);                                     \
+  p = ed25519::add_pa(p, ypx, ymx, t2d);                                    \
+  uint32_t pw[kQtEntryWords];                                               \
+  load_words(pw, qt + e * kQtEntryWords);                                   \
+  int32_t limb[80];                                                         \
+  _Pragma("unroll") for (int k = 0; k < 20; k++)                            \
+    decode_word(limb + 4 * k, pw[k], pw[20 + k]);                           \
+  p = ed25519::add_pe(p, limb)
+
+POLY_CHAIN(fe13_poly, ed25519, 20, int32_t, ed25519::kEntryWords,
+           FE13_POLY_STEP)
+POLY_CHAIN(wide_poly, ed_wide, 10, uint32_t, kBaseEntryWords,
+           WIDE_POLY_STEP)
+
 #define LAUNCH(NAME)                                                        \
   extern "C" int NAME##_launch(void* io, int iters, int blocks, void* s) {  \
     NAME<<<blocks, 256, 0, (cudaStream_t)s>>>((uint32_t*)io, iters);        \
@@ -259,12 +345,26 @@ LAUNCH(wide_dbl)
   }
 STEP_LAUNCH(fe13_fold4)
 STEP_LAUNCH(wide_fold4)
+
+#define POLY_LAUNCH(NAME)                                                   \
+  extern "C" int NAME##_launch(void* io, const void* table,                \
+                               const void* planes, int iters, int blocks,  \
+                               void* s) {                                   \
+    NAME<<<blocks, 256, 0, (cudaStream_t)s>>>((uint32_t*)io,               \
+                                              (const uint32_t*)table,      \
+                                              (const uint32_t*)planes,     \
+                                              iters);                      \
+    return (int)cudaGetLastError();                                         \
+  }
+POLY_LAUNCH(fe13_poly)
+POLY_LAUNCH(wide_poly)
 """
 
 # core -> (limbs, the bound of the random limbs that start each chain, its
-# chains; "fold4" takes the table of its step)
-CORES = {"fe13": (20, 1 << 13, ("mul", "sqr", "dbl", "fold4")),
-         "wide": (10, 1 << 25, ("mul", "sqr", "dbl", "fold4")),
+# chains; "fold4" takes the table of its step, "poly" its table and a
+# q_table)
+CORES = {"fe13": (20, 1 << 13, ("mul", "sqr", "dbl", "fold4", "poly")),
+         "wide": (10, 1 << 25, ("mul", "sqr", "dbl", "fold4", "poly")),
          "w8": (8, 1 << 32, ("mul", "sqr"))}
 
 
@@ -378,13 +478,25 @@ def run_cores(so, log, rng, card, iters=128):
              for op in ops]
     regs = build.parse_ptxas(log.read_text(), names)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib = load(so, [n + "_launch" for n in names if "fold4" not in n],
+    lib = load(so, [n + "_launch" for n in names
+                    if "fold4" not in n and "poly" not in n],
                [vp, i32, i32, vp])
     load(so, [n + "_launch" for n in names if "fold4" in n],
          [vp, vp, i32, i32, vp], lib)
+    load(so, [n + "_launch" for n in names if "poly" in n],
+         [vp, vp, vp, i32, i32, vp], lib)
     dev = torch.device("cuda")
-    tables = {"fe13": edwards_kernel.packed_table(4, dev),
-              "wide": edwards_kernel.word_table(4, dev)}
+    tables = {("fe13", "fold4"): edwards_kernel.packed_table(4, dev),
+              ("wide", "fold4"): edwards_kernel.word_table(4, dev),
+              ("fe13", "poly"): edwards_kernel.packed_table(8, dev),
+              ("wide", "poly"): edwards_kernel.word_table(8, dev)}
+    # one q_table of canonical limbs: 13-bit limbs below 2^13, the top one
+    # below 2^8 (a value below 2^255), as lo and hi planes
+    limbs = rng.integers(0, 1 << 13, (16, 4, 20))
+    limbs[..., 19] &= 0xFF
+    planes = torch.from_numpy(np.concatenate(
+        [(limbs & 0x7F).reshape(16, 80), (limbs >> 7).reshape(16, 80)],
+        -1).astype(np.int8)).to(dev)
     blocks = BATCH // THREADS
     funcs = sass_functions(so)
     rows = {}
@@ -394,8 +506,11 @@ def run_cores(so, log, rng, card, iters=128):
             name = "%s_%s" % (core, op)
             io = torch.from_numpy(init.astype(np.uint32).view(np.int32)).cuda()
             entry = getattr(lib, name + "_launch")
-            head = ((io.data_ptr(), tables[core].data_ptr()) if op == "fold4"
-                    else (io.data_ptr(),))
+            head = (io.data_ptr(),)
+            if op in ("fold4", "poly"):
+                head += (tables[core, op].data_ptr(),)
+            if op == "poly":
+                head += (planes.data_ptr(),)
 
             def run():
                 rc = entry(*head, iters, blocks, stream())
@@ -411,8 +526,8 @@ def run_cores(so, log, rng, card, iters=128):
                 ms_per_op=ms / iters)
             print("cores [%s]: %s %s, one trip of its chain: IMAD.WIDE %d, "
                   "other IMAD %d, ALU %d, all %d SASS instructions | %d "
-                  "registers, spill %d B | %.4f ms per op (fold4: per step) "
-                  "over %d lanes" % (
+                  "registers, spill %d B | %.4f ms per op (fold4, poly: per "
+                  "step) over %d lanes" % (
                       card, core, op, row["imad_wide"], row["imad"],
                       row["alu"], row["total"], row["registers"],
                       row["spill_store_bytes"], row["ms_per_op"], BATCH))
@@ -507,6 +622,112 @@ extern "C" int probe_fold4_launch(void* out, const void* cut, const void* zr,
 }
 """
 
+POLY_VARIANT = r"""
+#include "poly.cu"
+
+#if PROBE_MIN_BLOCKS > 0
+#define PROBE_BOUNDS __launch_bounds__(PROBE_THREADS, PROBE_MIN_BLOCKS)
+#else
+#define PROBE_BOUNDS __launch_bounds__(PROBE_THREADS)
+#endif
+
+// poly_kernel's body at the probe's block size and minimum (0: none)
+__global__ void PROBE_BOUNDS
+probe_poly_kernel(uint8_t* __restrict__ out, const int32_t* __restrict__ u,
+                  const int32_t* __restrict__ v,
+                  const uint32_t* __restrict__ planes,
+                  const uint32_t* __restrict__ table, int64_t n) {
+  __shared__ __align__(16) uint32_t tbl[kBaseWords];
+  copy_shared(tbl, table, kBaseWords);
+  __syncthreads();
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  poly_lane(out + 32 * lane, u + 32 * lane, v + 64 * lane,
+            planes + kQtWords * lane, tbl);
+}
+
+// poly_launch's arguments, per-lane q_tables only
+extern "C" int probe_poly_launch(void* out, const void* u, const void* v,
+                                 const void* planes, int shared,
+                                 const void* table, int64_t n, void* stream) {
+  probe_poly_kernel<<<(unsigned)((n + PROBE_THREADS - 1) / PROBE_THREADS),
+                      PROBE_THREADS, 0, (cudaStream_t)stream>>>(
+      (uint8_t*)out, (const int32_t*)u, (const int32_t*)v,
+      (const uint32_t*)planes, (const uint32_t*)table, n);
+  return (int)cudaGetLastError();
+}
+"""
+
+ONESHOT_VARIANT = r"""
+#include "oneshot.cu"
+
+// oneshot_kernel's body at the probe's block size and minimum; its grid is
+// rows / PROBE_THREADS blocks, persistent where that is fewer than the
+// tiles. PROBE_BARRIER: 0, none; 1, the block's threads meet after each
+// phase of a tile; 2, after Verify_Init only (as the shipped kernel).
+// PROBE_BALANCED: block b takes the lanes [n b / grid, n (b + 1) / grid) in
+// tiles, in place of every grid-th tile.
+__global__ void __launch_bounds__(PROBE_THREADS, PROBE_MIN_BLOCKS)
+probe_oneshot_kernel(uint8_t* __restrict__ out, uint8_t* __restrict__ ok,
+                     uint32_t* __restrict__ scratch,
+                     const uint8_t* __restrict__ pk,
+                     const int32_t* __restrict__ u,
+                     const int32_t* __restrict__ v,
+                     const uint32_t* __restrict__ table, int64_t n) {
+  __shared__ __align__(16) uint32_t tbl[kBaseWords];
+  for (int c = threadIdx.x; c < kBaseWords / 4; c += blockDim.x)
+    reinterpret_cast<uint4*>(tbl)[c] =
+        reinterpret_cast<const uint4*>(table)[c];
+  __syncthreads();
+  uint32_t* row = scratch +
+      kQtWords * ((int64_t)blockIdx.x * PROBE_THREADS + threadIdx.x);
+#if PROBE_BALANCED
+  const int64_t lo = n * blockIdx.x / gridDim.x;
+  const int64_t hi = n * (blockIdx.x + 1) / gridDim.x;
+  const int64_t step = PROBE_THREADS;
+#else
+  const int64_t lo = (int64_t)blockIdx.x * PROBE_THREADS, hi = n;
+  const int64_t step = (int64_t)gridDim.x * PROBE_THREADS;
+#endif
+#pragma unroll 1
+  for (int64_t tile = lo; tile < hi; tile += step) {
+    const int64_t lane = tile + threadIdx.x;
+    const bool live = lane < hi;
+    if (live) verify_init_lane(row, ok + lane, pk + 32 * lane);
+#if PROBE_BARRIER
+    __syncthreads();
+#endif
+    if (live)
+      poly_lane(out + 32 * lane, u + 32 * lane, v + 64 * lane, row, tbl);
+#if PROBE_BARRIER == 1
+    __syncthreads();
+#endif
+  }
+}
+
+// oneshot_launch's arguments; rows: probe_oneshot_rows's
+extern "C" int probe_oneshot_launch(void* out, void* ok, void* scratch,
+                                    int64_t rows, const void* pk,
+                                    const void* u, const void* v,
+                                    const void* table, int64_t n,
+                                    void* stream) {
+  probe_oneshot_kernel<<<(unsigned)(rows / PROBE_THREADS), PROBE_THREADS, 0,
+                         (cudaStream_t)stream>>>(
+      (uint8_t*)out, (uint8_t*)ok, (uint32_t*)scratch, (const uint8_t*)pk,
+      (const int32_t*)u, (const int32_t*)v, (const uint32_t*)table, n);
+  return (int)cudaGetLastError();
+}
+
+// Scratch rows of the grid: PROBE_GRID_PER_SM blocks per SM, or (0) one
+// block per tile of PROBE_THREADS lanes
+extern "C" int probe_oneshot_rows(int64_t n, int sms) {
+  const int64_t blocks = (n + PROBE_THREADS - 1) / PROBE_THREADS;
+  const int64_t most = (int64_t)PROBE_GRID_PER_SM * sms;
+  return (int)(PROBE_GRID_PER_SM == 0 || blocks < most ? blocks : most) *
+         PROBE_THREADS;
+}
+"""
+
 # what -> (its source in csrc/, launch entry, kernel, the probe's variant
 # source, the probe's launch entry and kernel)
 KERNELS = {
@@ -516,14 +737,21 @@ KERNELS = {
               VINIT_VARIANT, "probe_vinit_launch", "probe_vinit_kernel"),
     "fold4": ("basemult.cu", "basemult_launch", "basemult_fold4_kernel",
               FOLD4_VARIANT, "probe_fold4_launch", "probe_fold4_kernel"),
+    "poly": ("poly.cu", "poly_launch", "poly_kernel", POLY_VARIANT,
+             "probe_poly_launch", "probe_poly_kernel"),
+    "oneshot": ("oneshot.cu", "oneshot_launch", "oneshot_kernel",
+                ONESHOT_VARIANT, "probe_oneshot_launch",
+                "probe_oneshot_kernel"),
 }
 
 
 def probe_builds(what, variants, parent):
     """Start one nvcc per build of a kernel: the checkout's source as it
-    ships, each (threads, min_blocks[, unroll]) variant (unroll: fold 4's
-    FOLD4_SCAN_UNROLL, entries per trip of its scan), and the parent's
-    source.
+    ships, each (threads, min_blocks[, extra...]) variant (extra: fold 4's
+    FOLD4_SCAN_UNROLL, entries per trip of its scan; the one-shot grid's
+    blocks per SM, default min_blocks, its barriers and its balanced
+    split, ONESHOT_VARIANT's PROBE_BARRIER and PROBE_BALANCED), and the
+    parent's source.
     Returns name -> (library, launch entry, kernel, (process, log))."""
     src, entry, kernel, variant, probe_entry, probe_kernel = KERNELS[what]
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
@@ -542,7 +770,15 @@ def probe_builds(what, variants, parent):
         name = "%s_t%d_m%d" % (what, threads, min_blocks)
         flags = ["-DPROBE_THREADS=%d" % threads,
                  "-DPROBE_MIN_BLOCKS=%d" % min_blocks]
-        if unroll:
+        if what == "oneshot":
+            per_sm, barrier, balanced = list(unroll) + [min_blocks, 0, 0][
+                len(unroll):]
+            name += "_g%d_b%d%s" % (per_sm, barrier, "_bal" if balanced
+                                    else "")
+            flags += ["-DPROBE_GRID_PER_SM=%d" % per_sm,
+                      "-DPROBE_BARRIER=%d" % barrier,
+                      "-DPROBE_BALANCED=%d" % balanced]
+        elif unroll:
             name += "_u%d" % unroll[0]
             flags.append("-DFOLD4_SCAN_UNROLL=%d" % unroll[0])
         so = PROBE_DIR / ("lib%s.so" % name)
@@ -649,6 +885,87 @@ def run_fold4s(jobs, parent, rng, card):
                            0, tables[name].data_ptr(), 4, mode, BATCH), card)
 
 
+def parent_reads_packed(parent):
+    """Whether the parent's poly.cu reads the packed fold-8 table (the
+    13-bit lane's) rather than the word table."""
+    return parent is not None and "PlainPa" in (
+        Path(parent) / "curve25519_tpu_torch/ops/cuda/csrc/poly.cu"
+    ).read_text()
+
+
+def verify_inputs(vinits, rng):
+    """Random keys (about half off the curve), their planes from the
+    checkout's Verify_Init, and random digits u (mod 256) and v (mod 16)."""
+    dev = torch.device("cuda")
+    pk = torch.from_numpy(rng.integers(0, 256, (BATCH, 32), np.uint8)).to(dev)
+    planes = torch.empty((BATCH, 16, 160), dtype=torch.int8, device=dev)
+    ok = torch.empty(BATCH, dtype=torch.bool, device=dev)
+    so, entry = vinits["shipped"][:2]
+    fn = load(so, [entry], [ctypes.c_void_p] * 3 + [ctypes.c_int64,
+                                                    ctypes.c_void_p])
+    if getattr(fn, entry)(planes.data_ptr(), ok.data_ptr(), pk.data_ptr(),
+                          BATCH, stream()) != 0:
+        raise RuntimeError("verify_init_launch failed")
+    u = torch.from_numpy(rng.integers(0, 256, (BATCH, 32), np.int32)).to(dev)
+    v = torch.from_numpy(rng.integers(0, 16, (BATCH, 64), np.int32)).to(dev)
+    return pk, planes, u, v
+
+
+def verify_tables(jobs, parent):
+    """The fold-8 table each build reads: the word table, or the packed
+    table for a parent on the 13-bit lane."""
+    dev = torch.device("cuda")
+    tables = {name: edwards_kernel.word_table(8, dev) for name in jobs}
+    if parent_reads_packed(parent):
+        tables["parent"] = edwards_kernel.packed_table(8, dev)
+    return tables
+
+
+def run_polys(jobs, parent, inputs, card):
+    """The double-scalar multiply builds on per-lane q_tables (the longest
+    loop is one step)."""
+    _, planes, u, v = inputs
+    tables = verify_tables(jobs, parent)
+    vp = ctypes.c_void_p
+    return run_in_turns(
+        "poly", jobs, [vp] * 4 + [ctypes.c_int, vp, ctypes.c_int64, vp],
+        lambda: (torch.empty((BATCH, 32), dtype=torch.uint8, device="cuda"),),
+        lambda name, out: (out[0].data_ptr(), u.data_ptr(), v.data_ptr(),
+                           planes.data_ptr(), 0, tables[name].data_ptr(),
+                           BATCH), card)
+
+
+def run_oneshots(jobs, parent, inputs, card):
+    """The one-shot builds: each gets the scratch rows its library sizes
+    (the longest loop is the loop over a block's tiles)."""
+    pk, _, u, v = inputs
+    tables = verify_tables(jobs, parent)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    for name, (so, entry, _, _) in jobs.items():
+        lib = ctypes.CDLL(str(so))
+        size = (lib.oneshot_scratch_rows if entry == "oneshot_launch"
+                else lib.probe_oneshot_rows)
+        size.argtypes = [ctypes.c_int64, ctypes.c_int]
+        size.restype = ctypes.c_int
+        rows[name] = size(BATCH, sms)
+    scratch = torch.empty((max(rows.values()), 16, 160), dtype=torch.int8,
+                          device="cuda")
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    return run_in_turns(
+        "oneshot", jobs, [vp, vp, vp, i64, vp, vp, vp, vp, i64, vp],
+        lambda: (torch.empty((BATCH, 32), dtype=torch.uint8, device="cuda"),
+                 torch.empty(BATCH, dtype=torch.bool, device="cuda")),
+        lambda name, out: (out[0].data_ptr(), out[1].data_ptr(),
+                           scratch.data_ptr(), rows[name], pk.data_ptr(),
+                           u.data_ptr(), v.data_ptr(),
+                           tables[name].data_ptr(), BATCH), card)
+
+
+# the parts of a run, in order
+PARTS = ("cores", "ladder", "vinit", "fold4", "poly", "oneshot")
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -659,8 +976,8 @@ def card_line():
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="root of another checkout whose "
-                    "ladder.cu, verify.cu and basemult.cu are timed beside "
-                    "this one's")
+                    "ladder.cu, verify.cu, basemult.cu, poly.cu and "
+                    "oneshot.cu are timed beside this one's")
     ap.add_argument("--variants", default="64:1,128:4",
                     help="threads:min_blocks builds of this checkout's "
                     "ladder lane")
@@ -671,6 +988,18 @@ def main(argv=None):
                     help="threads:min_blocks[:unroll] builds of this "
                     "checkout's fold-4 byte-mode lane (0: no minimum; "
                     "unroll: entries per trip of its scan)")
+    ap.add_argument("--poly-variants", default="128:4,256:2",
+                    help="threads:min_blocks builds of this checkout's "
+                    "double-scalar multiply lane (0: no minimum)")
+    ap.add_argument("--oneshot-variants", default="512:1:1:1,256:2:2:2",
+                    help="threads:min_blocks[:blocks per SM of the grid"
+                    "[:barrier[:balanced]]] builds of this checkout's "
+                    "one-shot lane (grid 0: a block per tile; barrier 0: "
+                    "none, 1: the block meets after each phase, 2: after "
+                    "Verify_Init only; balanced 1: each block a contiguous "
+                    "share of the lanes)")
+    ap.add_argument("--only", default=",".join(PARTS),
+                    help="the parts to run, of %s" % ",".join(PARTS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ladder_probe needs a CUDA card")
@@ -678,24 +1007,45 @@ def main(argv=None):
     def pairs(text):
         return [tuple(int(x) for x in v.split(":")) for v in text.split(",")]
 
+    only = args.only.split(",")
+    if set(only) - set(PARTS):
+        raise SystemExit("unknown parts: %s" % sorted(set(only) - set(PARTS)))
     card = card_line()
     print(card)
     rng = np.random.default_rng(25519)
     t0 = time.perf_counter()
-    so, job = start_cores_build()
-    ladders = probe_builds("ladder", pairs(args.variants), args.parent)
-    vinits = probe_builds("vinit", pairs(args.vinit_variants), args.parent)
-    fold4s = probe_builds("fold4", pairs(args.fold4_variants), args.parent)
-    wait_all(dict(cores=job, **{"ladder " + n: j[3]
-                                for n, j in ladders.items()},
-                  **{"vinit " + n: j[3] for n, j in vinits.items()},
-                  **{"fold4 " + n: j[3] for n, j in fold4s.items()}))
+    variants = {"ladder": args.variants, "vinit": args.vinit_variants,
+                "fold4": args.fold4_variants, "poly": args.poly_variants,
+                "oneshot": args.oneshot_variants}
+    builds = {what: probe_builds(what, pairs(variants[what]), args.parent)
+              for what in PARTS[1:] if what in only}
+    if "poly" in only or "oneshot" in only:      # their planes come from it
+        builds.setdefault("vinit", probe_builds("vinit", [], None))
+    jobs = {"%s %s" % (what, n): j[3] for what, js in builds.items()
+            for n, j in js.items()}
+    if "cores" in only:
+        so, job = start_cores_build()
+        jobs["cores"] = job
+    wait_all(jobs)
     print("probe builds: %.1f s wall" % (time.perf_counter() - t0))
-    print(json.dumps({"card": card, "batch": BATCH,
-                      "cores": run_cores(so, job[1], rng, card),
-                      "ladders": run_ladders(ladders, rng, card),
-                      "vinits": run_vinits(vinits, rng, card),
-                      "fold4s": run_fold4s(fold4s, args.parent, rng, card)}))
+    result = {"card": card, "batch": BATCH}
+    if "cores" in only:
+        result["cores"] = run_cores(so, job[1], rng, card)
+    if "ladder" in only:
+        result["ladders"] = run_ladders(builds["ladder"], rng, card)
+    if "vinit" in only:
+        result["vinits"] = run_vinits(builds["vinit"], rng, card)
+    if "fold4" in only:
+        result["fold4s"] = run_fold4s(builds["fold4"], args.parent, rng,
+                                      card)
+    if "poly" in only or "oneshot" in only:
+        inputs = verify_inputs(builds["vinit"], rng)
+    if "poly" in only:
+        result["polys"] = run_polys(builds["poly"], args.parent, inputs, card)
+    if "oneshot" in only:
+        result["oneshots"] = run_oneshots(builds["oneshot"], args.parent,
+                                          inputs, card)
+    print(json.dumps(result))
 
 
 if __name__ == "__main__":
