@@ -37,7 +37,9 @@ nothing of JAX or of the JAX package. Phases, each printing a line:
    and fold 4 (held equal to the ladder's calculate_public_key on all
    lanes), sha512 of 64-byte messages, and the long-message sign (1,024
    lanes, 944-4,096 bytes); then each kernel timed against its plain
-   version at the same batch, and SHA-512 of 1,024 messages of up to 1 MiB
+   version at the same batch, one call of each base-multiply limb-mode
+   kernel (on no main path) beside its bound, and SHA-512 of 1,024
+   messages of up to 1 MiB
    (the reference's sha512_long shape) against hashlib on a few lanes;
 9. the three verify kernels against their plain versions, byte for byte:
    4,096 lanes of valid, random (half of them off the curve) and edge keys,
@@ -129,7 +131,9 @@ KERNELS = {
     "x25519_ladder_kernel": ("ladder.cu", PALLAS + "ladder_kernel.py:30",
                              ("x25519_ladder_kernel",)),
     "basemult_kernel": ("basemult.cu", PALLAS + "edwards_kernel.py:143",
-                        ("basemult_fold8_kernel", "basemult_fold4_kernel",
+                        ("basemult_fold8_kernel",
+                         "basemult_fold8_limbs_kernel",
+                         "basemult_fold4_kernel",
                          "basemult_fold4_limbs_kernel")),
     "sha512_kernel": ("sha512.cu", PALLAS + "sha512_kernel.py:101",
                       ("sha512_kernel",)),
@@ -1225,6 +1229,7 @@ def phase_ed_main(dev, rng, card, counts, bound, batch=MAIN_BATCH):
             sign_ops(w3_blocks), batch * (64 + 64 + 4 + 64)),
     }
     rows = time_kernels(cases, batch, card, 8, bound)
+    time_limb_modes(cut8, cut4, card, bound)
     time_long_sha512(dev, card, bound)
     for label, fn, args in (
             ("create_keypair", ed25519.create_keypair, (seeds,)),
@@ -1235,6 +1240,33 @@ def phase_ed_main(dev, rng, card, counts, bound, batch=MAIN_BATCH):
         print("phase 8 profile [%s]: %s B=%d, 3 calls: %s"
               % (card, label, batch, profile(fn, *args)))
     return rows
+
+
+def time_limb_modes(cut8, cut4, card, bound):
+    """The base multiply's limb-mode kernels (basemult_fold8_limbs_kernel and
+    basemult_fold4_limbs_kernel, the 13-bit lane; on no main path) in the
+    "affine" mode at the main batch: one call after a warm-up, against one
+    call of the plain version, byte-equal, beside the bound of the work."""
+    from curve25519_tpu_torch.ops.cuda import edwards_kernel as ek
+    for nfolds, cut in ((8, cut8), (4, cut4)):
+        name = "basemult_fold%d_limbs_kernel" % nfolds
+        for fn in (ek.base_mult, ek.base_mult_plain):
+            fn(cut[:8], mode="affine", nfolds=nfolds)
+        kernel_s, got = timed_once(
+            lambda c: ek.base_mult(c, mode="affine", nfolds=nfolds), cut)
+        plain_s, want = timed_once(
+            lambda c: ek.base_mult_plain(c, mode="affine", nfolds=nfolds),
+            cut)
+        check(max_abs_err(got, want) == 0, "%s != plain at the main batch"
+              % name)
+        batch = len(cut)
+        bms, by = bound.ms(basemult_ops(nfolds), batch,
+                           batch * (4 * cut.shape[-1] + 4 * 40))
+        print("phase 8 timing [%s]: %s (affine) B=%d kernel %.3f ms (one "
+              "call after a warm-up) | plain PyTorch %.3f ms (one call) | "
+              "bound %.3f ms (%s), %.1f%% | byte-equal"
+              % (card, name, batch, kernel_s * 1e3, plain_s * 1e3, bms, by,
+                 share(bms, kernel_s * 1e3, name)))
 
 
 def time_long_sha512(dev, card, bound, lanes=LONG_SHA_LANES,

@@ -55,8 +55,8 @@ _vp, _i64, _int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 LIBRARIES = {
     "ladder": (("x25519_ladder_kernel",),
                {"x25519_ladder_launch": [_vp, _vp, _vp, _vp, _i64, _vp]}),
-    "basemult": (("basemult_fold8_kernel", "basemult_fold4_kernel",
-                  "basemult_fold4_limbs_kernel"),
+    "basemult": (("basemult_fold8_kernel", "basemult_fold8_limbs_kernel",
+                  "basemult_fold4_kernel", "basemult_fold4_limbs_kernel"),
                  {"basemult_launch": [_vp, _vp, _vp, _i64, _vp, _i64, _vp,
                                       _int, _int, _i64, _vp]}),
     "sha512": (("sha512_kernel",),

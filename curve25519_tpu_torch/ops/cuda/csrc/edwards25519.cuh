@@ -1,5 +1,9 @@
 // edwards25519.cuh -- twisted-Edwards point arithmetic and the folding
-// base-point multiply for one lane.
+// base-point multiply for one lane on the 13-bit core: the lane of the base
+// multiply's limb modes (`affine`, `mont_u`; csrc/basemult.cu), whose weak
+// 13-bit limbs only this radix and this op order reproduce. The byte modes,
+// keygen, sign and verify run on the wide core (fold_wide.cuh,
+// edwards25519_wide.cuh).
 //
 // Replaces the device functions of curve25519_tpu/ops/pallas/edwards_kernel.py
 // (_gather_pa, _double, _add_pa, _add_pe, the fold loop of _basemult_kernel)
@@ -15,9 +19,9 @@
 // the reads broadcast; the table is packed two 13-bit limbs per 32-bit word
 // (limb 2k in bits 0..15, limb 2k+1 in bits 16..31 of word k, over the 60
 // limbs ypx ++ ymx ++ t2d), 32 words per entry (the last two zero), which
-// halves the selects of a gather. The sign kernel and the fold-8 base
-// multiply do the same read as an int8 one-hot product on the tensor cores
-// (gather_mma.cuh).
+// halves the selects of a gather (fold 4's 16 entries). Fold 8 reads its
+// 256 entries as an int8 one-hot product on the tensor cores
+// (gather_mma.cuh) and takes the canonical words to 13-bit limbs.
 
 #pragma once
 
@@ -156,8 +160,8 @@ struct ScanGather {
 // (2xR : 2yR : 2R : 2xyR) from entry cut[0], then (NCUTS - 1) x (double +
 // table add) (models/edwards._base_mult_folded). `cut` is read at indices
 // that depend only on the step counter. `gather(ypx, ymx, t2d, digit)` reads
-// a table entry in constant time: ScanGather, or the tensor-core MmaGather
-// of the sign and fold-8 base-multiply kernels (gather_mma.cuh).
+// a table entry in constant time: ScanGather, or basemult.cu's
+// Limbs13Gather over the tensor-core gather (gather_mma.cuh).
 template <int NCUTS, class Gather>
 FE_HD Ext base_mult(const int32_t* cut, const Fe& zr, const Gather& gather) {
   Fe ypx, ymx, t2d;
@@ -175,25 +179,11 @@ FE_HD Ext base_mult(const int32_t* cut, const Fe& zr, const Gather& gather) {
   return s;
 }
 
-// 20 limbs from a row (stride 0 rows share one vector).
-FE_HD Fe load_fe(const int32_t* p) {
-  Fe r;
-#pragma unroll
-  for (int i = 0; i < NLIMBS; i++) r.v[i] = p[i];
-  return r;
-}
-
 FE_HD Fe one() {
   Fe r;
 #pragma unroll
   for (int i = 0; i < NLIMBS; i++) r.v[i] = i == 0;
   return r;
-}
-
-// Compressed encoding of S's affine point (the "pk" epilogue).
-FE_HD void pack_ext(int32_t (&out)[32], const Ext& s) {
-  const Fe zi = inv(s.z);
-  pack_point(out, mul(s.x, zi), mul(s.y, zi));
 }
 
 }  // namespace ed25519

@@ -2,8 +2,9 @@
 // the wide field core (fe25519_wide.cuh: ten 32-bit limbs, radix 2^25.5).
 //
 // The point code of the verify kernels (csrc/verify.cu, poly.cu and
-// oneshot.cu, through verify_lane.cuh) and of the fold-4 base multiply's
-// byte modes (csrc/basemult.cu, through fold4_wide.cuh). Each function
+// oneshot.cu, through verify_lane.cuh) and of the base multiply's byte
+// modes, keygen and sign (csrc/basemult.cu, sign.cu, through
+// fold_wide.cuh). Each function
 // computes, coordinate by coordinate, the same field element as its
 // counterpart in edwards25519.cuh and models/edwards.py: the same formulas,
 // which scale (X : Y : Z : T) alike, so the q_table's canonical limbs come

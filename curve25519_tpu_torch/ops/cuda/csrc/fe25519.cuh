@@ -3,9 +3,10 @@
 //
 // Replaces the in-kernel field core of the TPU package,
 // curve25519_tpu/ops/pallas/fe_tile.py (t_add, t_sub, t_neg, t_mul, t_sqr,
-// t_mul_small_add, t_select, t_inv, t_canon, t_norm_to_bytes, t_to_bytes,
-// t_pack_point; t_pow2523, t_is_zero and verify_kernel._t_sqrt_ratio, which
-// only verify uses, are fe25519_wide.cuh's), and the byte->limb
+// t_mul_small_add, t_select, t_inv, t_canon, t_norm_to_bytes, t_to_bytes;
+// t_pow2523, t_is_zero and verify_kernel._t_sqrt_ratio, which only verify
+// uses, are fe25519_wide.cuh's, and t_pack_point edwards25519_wide.cuh's
+// pack), and the byte->limb
 // decode sc_tile.limbs_from_byte_rows. Where those work on [20, 8, 128] tiles
 // of 1024 lanes, every function here works on the 20 limbs of ONE lane, held
 // in registers: the CUDA kernel runs one lane per thread.
@@ -218,6 +219,14 @@ FE_HD Fe canon(const Fe& x) {
   return select(uc + 1, ud, td);
 }
 
+// 20 limbs from a row (stride 0 rows share one vector).
+FE_HD Fe load_fe(const int32_t* p) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < NLIMBS; i++) r.v[i] = p[i];
+  return r;
+}
+
 // A constant's limbs.
 FE_HD Fe fe_const(const int32_t (&t)[NLIMBS]) {
   Fe r;
@@ -241,14 +250,6 @@ FE_HD void norm_to_bytes(int32_t (&out)[32], const Fe& d) {
 
 // Weak limbs -> canonical little-endian bytes (ops/fe.py to_bytes).
 FE_HD void to_bytes(int32_t (&out)[32], const Fe& x) { norm_to_bytes(out, canon(x)); }
-
-// Affine (x, y) -> compressed Edwards point: enc(y) with the parity of x in
-// bit 7 of byte 31 (fe_tile.t_pack_point, the reference ed25519_PackPoint).
-FE_HD void pack_point(int32_t (&out)[32], const Fe& x, const Fe& y) {
-  const Fe xc = canon(x);
-  to_bytes(out, y);
-  out[31] = (out[31] & 0x7F) | ((xc.v[0] & 1) << 7);
-}
 
 // 32 little-endian bytes (already widened to int32) -> normalized limbs, NOT
 // reduced mod p (ops/fe.py from_bytes, sc_tile.limbs_from_byte_rows).

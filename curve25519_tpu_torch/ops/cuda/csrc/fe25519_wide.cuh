@@ -418,11 +418,9 @@ FE_HD void to_bytes(uint8_t* out, const Fe& x) {
 // ---------------------------------------------------------------------------
 constexpr int kLimbs13 = 20;
 
-// Canonical limbs (canon's) -> the twenty 13-bit limbs of the same value,
-// each in [0, 2^13): fe25519's canonical limbs.
-FE_HD void to_limbs13(int32_t (&out)[kLimbs13], const Fe& c) {
-  uint32_t w[8];
-  to_words(w, c);
+// Eight little-endian words of a value below 2^260 -> its twenty 13-bit
+// limbs, each in [0, 2^13).
+FE_HD void limbs13_from_words(int32_t (&out)[kLimbs13], const uint32_t (&w)[8]) {
 #pragma unroll
   for (int k = 0; k < kLimbs13; k++) {
     const int j = 13 * k / 32, s = 13 * k % 32;
@@ -432,10 +430,17 @@ FE_HD void to_limbs13(int32_t (&out)[kLimbs13], const Fe& c) {
   }
 }
 
-// Twenty 13-bit limbs, each in [0, 2^13), of a value below 2^255 (such as
-// fe25519's canonical limbs) -> TIGHT limbs of that value.
-FE_HD Fe from_limbs13(const int32_t (&limb)[kLimbs13]) {
+// Canonical limbs (canon's) -> the twenty 13-bit limbs of the same value,
+// each in [0, 2^13): fe25519's canonical limbs.
+FE_HD void to_limbs13(int32_t (&out)[kLimbs13], const Fe& c) {
   uint32_t w[8];
+  to_words(w, c);
+  limbs13_from_words(out, w);
+}
+
+// Twenty 13-bit limbs, each in [0, 2^13), of a value below 2^256 -> its
+// eight little-endian words.
+FE_HD void words_from_limbs13(uint32_t (&w)[8], const int32_t* limb) {
 #pragma unroll
   for (int k = 0; k < 8; k++) w[k] = 0;
 #pragma unroll
@@ -444,6 +449,13 @@ FE_HD Fe from_limbs13(const int32_t (&limb)[kLimbs13]) {
     w[j] |= (uint32_t)limb[k] << s;
     if (s + 13 > 32 && j + 1 < 8) w[j + 1] |= (uint32_t)limb[k] >> (32 - s);
   }
+}
+
+// Twenty 13-bit limbs, each in [0, 2^13), of a value below 2^255 (such as
+// fe25519's canonical limbs) -> TIGHT limbs of that value.
+FE_HD Fe from_limbs13(const int32_t (&limb)[kLimbs13]) {
+  uint32_t w[8];
+  words_from_limbs13(w, limb);
   return from_words(w);
 }
 

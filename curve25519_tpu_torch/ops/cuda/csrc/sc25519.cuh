@@ -3,8 +3,8 @@
 //
 // Replaces the TPU package's in-kernel mod-l library
 // curve25519_tpu/ops/pallas/sc_tile.py (sc_carry, sc_canon, sc_reduce40,
-// sc_mod, sc_add, sc_mul, sc_muladd, sc_from_digest_rows, cut8_rows,
-// clamp_rows). The integer steps are those of curve25519_tpu_torch/ops/sc.py
+// sc_mod, sc_add, sc_mul, sc_muladd, sc_from_digest_rows, clamp_rows;
+// cut8_rows is fold_wide.cuh's CombDigits). The integer steps are those of curve25519_tpu_torch/ops/sc.py
 // (and of the JAX ops/sc.py): 20 limbs of 13 bits, the FOLD_SC matrix that
 // folds the high 20 limbs of a 40-limb value down in one step, and the
 // l = 2^252 + delta canonicalization. So the host build is compared limb
@@ -168,21 +168,6 @@ FE_HD Fe from_digest(const int32_t (&b)[64]) {
     cols[i] = (w >> s) & MASK;
   }
   return reduce40(cols);
-}
-
-// 8-fold digits of a normalized scalar: digit c, bit j = scalar bit
-// 32j + 31 - c (fold.cut8_limbs).
-FE_HD void cut8(int32_t (&dig)[32], const Fe& d) {
-#pragma unroll
-  for (int c = 0; c < 32; c++) {
-    int32_t acc = 0;
-#pragma unroll
-    for (int j = 0; j < 8; j++) {
-      const int pos = 32 * j + 31 - c;
-      acc |= ((d.v[pos / BITS] >> (pos % BITS)) & 1) << j;
-    }
-    dig[c] = acc;
-  }
 }
 
 // RFC 7748 / 8032 clamping of 32 byte values.

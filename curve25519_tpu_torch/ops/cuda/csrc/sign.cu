@@ -14,23 +14,28 @@
 // prefix, 64 for R || pk; the FIPS padding depends only on the total
 // length), and the lane splices its in-kernel values into that hole: the
 // prefix half of md, enc(R) and the pk. The mod-l code is sc25519.cuh
-// (sc_tile), the point code edwards25519.cuh.
+// (sc_tile), on 13-bit limbs; the base multiply is fold_wide.cuh's lane on
+// the wide field core.
 //
-// What bounds it on this card: int32 multiply-add issue (the base
-// multiply's ~240 K IMADs per lane; the three SHA-512 runs and the mod-l
-// steps add ALU work). What the design does about it: one SHA compression
-// function and one rolled loop over blocks and over fold steps keep the code
-// and the registers small; the 8-fold digits live in a per-lane array
-// indexed by the step counter only.
+// What bounds it on this card: the base multiply's field products on the
+// FMA pipe, 31 x (4 M + 4 S + 7 M) and the inversion, ~730 multiplies and
+// squarings a lane; the three SHA-512 runs and the mod-l steps add ALU and
+// IMAD work. What the design does about it: the base multiply runs on the
+// wide core (fe25519_wide.cuh, a multiply is 100 `IMAD.WIDE.U32` against
+// the 13-bit core's ~420 IMAD) through edwards25519_wide.cuh's formulas in
+// the plain version's order, so enc(R) and pk are the same bytes; one SHA
+// compression function and one rolled loop over blocks and over fold steps
+// keep the code and the registers small; the 8-fold digits are read from
+// the scalar's 8 words at each step (fold_wide::CombDigits), so no per-lane
+// array is indexed by the step counter.
 //
 // Both kernels' 32 constant-time table reads run on the tensor cores
-// (gather_mma.cuh): per warp and read, 240 int8 one-hot mma.sync products
-// over the table in shared memory, in B-fragment order, where the masked
-// scan of every entry (gather<256>) costs ~8 K ALU operations per lane. No
-// address and no branch depends on a digit: every warp reads every entry,
-// the digits only select values. Shared memory per block of 128 threads:
-// the 30 KB table and four warps' staging rows, 64 KB of dynamic memory
-// (keygen_kernel reserves 80 KB, see kKeygenSmemBytes).
+// (gather_mma.cuh): per warp and read, 192 int8 one-hot mma.sync products
+// over the word table in shared memory, in B-fragment order, each lane
+// getting its entry's canonical words. No address and no branch depends on
+// a digit: every warp reads every entry, the digits only select values.
+// Shared memory per block: the 24 KB table and a staging row per warp
+// (3.5 KB), dynamic.
 // mma.sync needs the whole warp, so no lane returns before the end: a warp
 // wholly past n leaves at once, the lanes of a partial warp past n
 // recompute lane n - 1 (their reads stay in bounds and their digits in
@@ -45,6 +50,7 @@
 // the tensor-core gather, sign_host with the masked scan, gather_host,
 // sc25519_op_host).
 
+#include "fold_wide.cuh"
 #include "gather_mma.cuh"
 #include "sc25519.cuh"
 #include "sha512.cuh"
@@ -53,7 +59,7 @@
 #include <cuda_runtime.h>
 #endif
 
-using namespace ed25519;
+using namespace fe25519;
 
 // SHA-512 state of a 32-byte seed: one block built in registers.
 FE_HD void seed_hash(uint64_t (&st)[8], const uint8_t* seed) {
@@ -78,49 +84,46 @@ FE_HD Fe secret_scalar(const uint64_t (&md)[8]) {
   return from_bytes(a);
 }
 
-// Big-endian 64-bit word from 8 byte values.
-FE_HD uint64_t be_word_i32(const int32_t* b) {
-  uint64_t v = 0;
-#pragma unroll
-  for (int k = 0; k < 8; k++) v = (v << 8) | (uint32_t)b[k];
-  return v;
+// (scalar + bl)*G + BP, or scalar*G without blinding, compressed, as 8
+// little-endian words; scalar: normalized 13-bit limbs. words: a
+// constant-time words source of the fold-8 word table (gather_mma's, or the
+// masked scan on the host).
+template <class Words>
+FE_HD void blinded_base_pk(uint32_t (&enc)[8], const Fe& scalar, const int32_t* zr,
+                           const int32_t* bl, const int32_t* bp, const Words& words) {
+  const Fe a = bl ? sc25519::add(scalar, load_fe(bl)) : scalar;
+  fold_wide::CombDigits dig;
+  fe_wide::words_from_limbs13(dig.w, a.v);
+  fold_wide::pack_words(enc, fold_wide::base_mult<32>(dig, zr, bp, words));
 }
 
-// (scalar + bl)*G + BP, or scalar*G without blinding; compressed bytes.
-// gather: a constant-time gather policy of base_mult over the fold-8 table.
-template <class Gather>
-FE_HD void blinded_base_pk(int32_t (&enc)[32], const Fe& scalar, const int32_t* zr,
-                           const int32_t* bl, const int32_t* bp, const Gather& gather) {
-  int32_t dig[32];
-  sc25519::cut8(dig, bl ? sc25519::add(scalar, load_fe(bl)) : scalar);
-  Ext s = base_mult<32>(dig, zr ? load_fe(zr) : one(), gather);
-  if (bp) s = add_pe(s, bp);
-  pack_ext(enc, s);
+// Byte j of little-endian words.
+FE_HD uint8_t word_byte(const uint32_t (&w)[8], int j) {
+  return (uint8_t)(w[j / 4] >> (8 * (j % 4)));
 }
 
-// pk: 32 bytes out, or null to store nothing; gather: a constant-time
-// gather policy of base_mult over the fold-8 table.
-template <class Gather>
+// pk: 32 bytes out, or null to store nothing; words: as blinded_base_pk's.
+template <class Words>
 FE_HD void keygen_lane(uint8_t* pk, const uint8_t* seed, const int32_t* zr,
-                       const int32_t* bl, const int32_t* bp, const Gather& gather) {
+                       const int32_t* bl, const int32_t* bp, const Words& words) {
   uint64_t md[8];
   seed_hash(md, seed);
   Fe a = secret_scalar(md);
   if (bl) a = sc25519::mod(a);  // the blinded route adds bl to a mod l
-  int32_t enc[32];
-  blinded_base_pk(enc, a, zr, bl, bp, gather);
+  uint32_t enc[8];
+  blinded_base_pk(enc, a, zr, bl, bp, words);
   if (!pk) return;
 #pragma unroll
-  for (int j = 0; j < 32; j++) pk[j] = (uint8_t)enc[j];
+  for (int j = 0; j < 32; j++) pk[j] = word_byte(enc, j);
 }
 
 // priv: 64 bytes (seed || pk); w2, w3: the lane's padded word rows of
 // (32-byte hole || m) and (64-byte hole || m) with nb2, nb3 active blocks;
 // sig: 64 bytes out, or null to store nothing.
-template <class Gather>
+template <class Words>
 FE_HD void sign_lane(uint8_t* sig, const uint8_t* priv, const int32_t* w2, int32_t nb2,
                      const int32_t* w3, int32_t nb3, const int32_t* zr, const int32_t* bl,
-                     const int32_t* bp, const Gather& gather) {
+                     const int32_t* bp, const Words& words) {
   uint64_t md[8], st[8], w[16];
   int32_t by[64];
   seed_hash(md, priv);
@@ -139,8 +142,8 @@ FE_HD void sign_lane(uint8_t* sig, const uint8_t* priv, const int32_t* w2, int32
   sha512::digest_bytes(by, st);
   const Fe r = sc25519::from_digest(by);
 
-  int32_t R[32];
-  blinded_base_pk(R, r, zr, bl, bp, gather);
+  uint32_t R[8];
+  blinded_base_pk(R, r, zr, bl, bp, words);
 
   // h = SHA512(enc(R) || pk || m) mod l
   sha512::init(st);
@@ -150,7 +153,10 @@ FE_HD void sign_lane(uint8_t* sig, const uint8_t* priv, const int32_t* w2, int32
     if (b == 0) {
 #pragma unroll
       for (int t = 0; t < 4; t++) {
-        w[t] = be_word_i32(R + 8 * t);
+        uint8_t rb[8];
+#pragma unroll
+        for (int k = 0; k < 8; k++) rb[k] = word_byte(R, 8 * t + k);
+        w[t] = sha512::be_word(rb);
         w[4 + t] = sha512::be_word(priv + 32 + 8 * t);
       }
     }
@@ -165,30 +171,35 @@ FE_HD void sign_lane(uint8_t* sig, const uint8_t* priv, const int32_t* w2, int32
   if (!sig) return;
 #pragma unroll
   for (int j = 0; j < 32; j++) {
-    sig[j] = (uint8_t)R[j];
+    sig[j] = word_byte(R, j);
     sig[32 + j] = (uint8_t)s_bytes[j];
   }
 }
 
 #ifdef __CUDACC__
 
-constexpr int kBlock = 128;
+// Both kernels' block size and minimum of blocks per SM: at most 168
+// registers a thread, 12 warps per SM (tools/ladder_probe.py times other
+// shapes against them; PERF.md lists each shape tried).
+#ifndef SIGN_BLOCK
+#define SIGN_BLOCK 128
+#endif
+#ifndef SIGN_MIN_BLOCKS
+#define SIGN_MIN_BLOCKS 3
+#endif
+constexpr int kBlock = SIGN_BLOCK;
 // Dynamic shared memory of keygen_kernel and sign_kernel: the table in B
-// order, then one staging area per warp (64 KB). keygen_kernel asks for
-// 16 KB more than it uses, so that two blocks (8 warps) share an SM where
-// three would fit: at 168 registers three blocks ran 0.8 ms slower on the
-// card (PERF.md), most likely for the L1 that their shared memory
-// takes from the lanes' local digit arrays.
-constexpr int kSignSmemBytes = 4 * (kMmaTableWords + (kBlock / 32) * kStageWords);
-constexpr int kKeygenSmemBytes = kSignSmemBytes + 16 * 1024;
+// order, then one staging row per warp.
+constexpr int kSmemBytes =
+    4 * (gather_mma::kTableWords + (kBlock / 32) * gather_mma::kStageWords);
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, SIGN_MIN_BLOCKS)
 keygen_kernel(uint8_t* __restrict__ pk, const uint8_t* __restrict__ sk,
               const int32_t* __restrict__ zr, int64_t zr_stride, const int32_t* __restrict__ bl,
               int64_t bl_stride, const int32_t* __restrict__ bp, int64_t bp_stride,
               const uint32_t* __restrict__ table, int64_t n) {
   extern __shared__ __align__(16) uint32_t smem[];
-  const MmaGather gather = load_mma_table(smem, table);
+  const gather_mma::Gather gather = gather_mma::load_table(smem, table);
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if ((lane & ~(int64_t)31) >= n) return;  // the whole warp is past n
   const int64_t row = lane < n ? lane : n - 1;
@@ -197,7 +208,7 @@ keygen_kernel(uint8_t* __restrict__ pk, const uint8_t* __restrict__ sk,
               bp ? bp + bp_stride * row : nullptr, gather);
 }
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, SIGN_MIN_BLOCKS)
 sign_kernel(uint8_t* __restrict__ sig, const uint8_t* __restrict__ priv,
             const int32_t* __restrict__ w2, int64_t nw2, const int32_t* __restrict__ nb2,
             const int32_t* __restrict__ w3, int64_t nw3, const int32_t* __restrict__ nb3,
@@ -205,7 +216,7 @@ sign_kernel(uint8_t* __restrict__ sig, const uint8_t* __restrict__ priv,
             int64_t bl_stride, const int32_t* __restrict__ bp, int64_t bp_stride,
             const uint32_t* __restrict__ table, int64_t n) {
   extern __shared__ __align__(16) uint32_t smem[];
-  const MmaGather gather = load_mma_table(smem, table);
+  const gather_mma::Gather gather = gather_mma::load_table(smem, table);
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if ((lane & ~(int64_t)31) >= n) return;  // the whole warp is past n
   const int64_t row = lane < n ? lane : n - 1;
@@ -216,8 +227,8 @@ sign_kernel(uint8_t* __restrict__ sig, const uint8_t* __restrict__ priv,
 
 // pk: [n, 32] uint8 out; sk: [n, 32] uint8 seeds; zr, bl: 20-limb int32
 // rows and bp: 80-limb rows at their strides (0: one shared row), each
-// possibly null (bl and bp together); table: the fold-8 table in B order
-// (edwards_kernel.mma_table, 16-byte aligned). Launches on `stream`,
+// possibly null (bl and bp together); table: the fold-8 word table in B
+// order (edwards_kernel.mma_word_table, 16-byte aligned). Launches on `stream`,
 // allocates nothing, does not synchronize. Returns cudaGetLastError(), or
 // the error of a refused shared-memory attribute.
 extern "C" int keygen_launch(void* pk, const void* sk, const void* zr, int64_t zr_stride,
@@ -225,10 +236,10 @@ extern "C" int keygen_launch(void* pk, const void* sk, const void* zr, int64_t z
                              int64_t bp_stride, const void* table, int64_t n, void* stream) {
   if (n > 0) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        keygen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kKeygenSmemBytes);
+        keygen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (rc != cudaSuccess) return (int)rc;
     const unsigned blocks = (unsigned)((n + kBlock - 1) / kBlock);
-    keygen_kernel<<<blocks, kBlock, kKeygenSmemBytes, (cudaStream_t)stream>>>(
+    keygen_kernel<<<blocks, kBlock, kSmemBytes, (cudaStream_t)stream>>>(
         (uint8_t*)pk, (const uint8_t*)sk, (const int32_t*)zr, zr_stride, (const int32_t*)bl,
         bl_stride, (const int32_t*)bp, bp_stride, (const uint32_t*)table, n);
   }
@@ -245,10 +256,10 @@ extern "C" int sign_launch(void* sig, const void* priv, const void* w2, int64_t 
                            void* stream) {
   if (n > 0) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        sign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSignSmemBytes);
+        sign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (rc != cudaSuccess) return (int)rc;
     const unsigned blocks = (unsigned)((n + kBlock - 1) / kBlock);
-    sign_kernel<<<blocks, kBlock, kSignSmemBytes, (cudaStream_t)stream>>>(
+    sign_kernel<<<blocks, kBlock, kSmemBytes, (cudaStream_t)stream>>>(
         (uint8_t*)sig, (const uint8_t*)priv, (const int32_t*)w2, nw2, (const int32_t*)nb2,
         (const int32_t*)w3, nw3, (const int32_t*)nb3, (const int32_t*)zr, zr_stride,
         (const int32_t*)bl, bl_stride, (const int32_t*)bp, bp_stride, (const uint32_t*)table, n);
@@ -265,10 +276,10 @@ extern "C" const char* cuda_error_string(int code) {
 // ---------------------------------------------------------------------------
 // Host entries: the same per-lane code on the CPU, for the tests.
 // ---------------------------------------------------------------------------
-// mma = 0: the masked scan over the packed table
-// (edwards_kernel.packed_table(8)); mma = 1: the host emulation of the
-// tensor-core gather over the table in B order (edwards_kernel.mma_table),
-// lane i at position i % 32 of its warp.
+// mma = 0: the masked scan of the word table (edwards_kernel.word_table(8));
+// mma = 1: the host emulation of the tensor-core gather over the word table
+// in B order (edwards_kernel.mma_word_table), lane i at position i % 32 of
+// its warp.
 extern "C" void keygen_host(int mma, uint8_t* pk, const uint8_t* sk, const int32_t* zr,
                             int64_t zr_stride, const int32_t* bl, int64_t bl_stride,
                             const int32_t* bp, int64_t bp_stride, const uint32_t* table,
@@ -278,12 +289,15 @@ extern "C" void keygen_host(int mma, uint8_t* pk, const uint8_t* sk, const int32
     const int32_t* l = bl ? bl + bl_stride * i : nullptr;
     const int32_t* b = bp ? bp + bp_stride * i : nullptr;
     if (mma)
-      keygen_lane(pk + 32 * i, sk + 32 * i, z, l, b, MmaGatherHost{table, (int)(i & 31)});
+      keygen_lane(pk + 32 * i, sk + 32 * i, z, l, b,
+                  gather_mma::HostGather{table, (int)(i & 31)});
     else
-      keygen_lane(pk + 32 * i, sk + 32 * i, z, l, b, ScanGather<256>{table});
+      keygen_lane(pk + 32 * i, sk + 32 * i, z, l, b, fold_wide::ScanWords<256>{table});
   }
 }
 
+// table: the word table (edwards_kernel.word_table(8)), read by the masked
+// scan.
 extern "C" void sign_host(uint8_t* sig, const uint8_t* priv, const int32_t* w2, int64_t nw2,
                           const int32_t* nb2, const int32_t* w3, int64_t nw3, const int32_t* nb3,
                           const int32_t* zr, int64_t zr_stride, const int32_t* bl,
@@ -292,26 +306,25 @@ extern "C" void sign_host(uint8_t* sig, const uint8_t* priv, const int32_t* w2, 
   for (int64_t i = 0; i < n; i++)
     sign_lane(sig + 64 * i, priv + 64 * i, w2 + nw2 * i, nb2[i], w3 + nw3 * i, nb3[i],
               zr ? zr + zr_stride * i : nullptr, bl ? bl + bl_stride * i : nullptr,
-              bp ? bp + bp_stride * i : nullptr, ScanGather<256>{table});
+              bp ? bp + bp_stride * i : nullptr, fold_wide::ScanWords<256>{table});
 }
 
-// out: [n, 60] int32, the limbs ypx ++ ymx ++ t2d of fold-8 entry dig[i],
-// by the masked scan (mma = 0; table: edwards_kernel.packed_table(8)) or by
+// out: [n, 24] uint32, the words ypx ++ ymx ++ t2d of fold-8 entry dig[i],
+// by the masked scan (mma = 0; table: edwards_kernel.word_table(8)) or by
 // the host emulation of the tensor-core gather, 32 lanes per warp and the
-// last warp partial (mma = 1; table: edwards_kernel.mma_table).
-extern "C" void gather_host(int mma, int32_t* out, const int32_t* dig, const uint32_t* table,
+// last warp partial (mma = 1; table: edwards_kernel.mma_word_table).
+extern "C" void gather_host(int mma, uint32_t* out, const int32_t* dig, const uint32_t* table,
                             int64_t n) {
-  auto rows = reinterpret_cast<int32_t(*)[3 * NLIMBS]>(out);
+  auto rows = reinterpret_cast<uint32_t(*)[gather_mma::kWords]>(out);
   if (mma) {
     for (int64_t w = 0; w < n; w += 32)
-      mma_gather_host(rows + w, dig + w, (int)(n - w < 32 ? n - w : 32), table);
+      gather_mma::mma_gather_host(rows + w, dig + w, (int)(n - w < 32 ? n - w : 32), table);
     return;
   }
   for (int64_t i = 0; i < n; i++) {
-    Fe e[3];
-    gather<256>(e[0], e[1], e[2], table, dig[i]);
-    for (int c = 0; c < 3; c++)
-      for (int k = 0; k < NLIMBS; k++) rows[i][NLIMBS * c + k] = e[c].v[k];
+    uint32_t w[3][8];
+    fold_wide::ScanWords<256>{table}(w, dig[i]);
+    for (int k = 0; k < gather_mma::kWords; k++) rows[i][k] = w[k / 8][k % 8];
   }
 }
 
@@ -338,9 +351,9 @@ extern "C" int sc25519_op_host(int op, int32_t* out, const int32_t* x, const int
         case SC_MUL: r = sc25519::mul(a, b); break;
         case SC_MULADD: r = sc25519::muladd(a, b, c); break;
         case SC_SUB_FROM_ELL: r = sc25519::sub_from_ell(a); break;
-        case SC_CUT8: {
-          int32_t dig[32];
-          sc25519::cut8(dig, a);
+        case SC_CUT8: {  // the kernels' digits: from the scalar's words
+          fold_wide::CombDigits dig;
+          fe_wide::words_from_limbs13(dig.w, a.v);
           for (int j = 0; j < 32; j++) out[32 * lane + j] = dig[j];
           continue;
         }

@@ -24,8 +24,8 @@ from curve25519_tpu_torch.ops.cuda import (
     as_limbs, build, flatten_batch, use_cuda,
 )
 
-__all__ = ["base_mult", "base_mult_plain", "packed_table", "mma_table",
-           "word_table", "kernel_table", "launches", "MODES"]
+__all__ = ["base_mult", "base_mult_plain", "packed_table", "word_table",
+           "mma_word_table", "kernel_table", "launches", "MODES"]
 
 MODES = {"affine": 0, "mont_u": 1, "pk": 2, "u_bytes": 3}
 PE_KEYS = ("ypx", "ymx", "t2d", "z2")
@@ -35,9 +35,10 @@ launches = 0
 
 @functools.lru_cache(maxsize=None)
 def packed_table(nfolds, device):
-    """The folding table in the kernels' layout, on `device`: per entry 32
-    int32 words, word k = limb 2k | limb 2k+1 << 16 of the 60 limbs
-    ypx ++ ymx ++ t2d, words 30 and 31 zero."""
+    """The folding table in the 13-bit lane's layout (fold 4's limb modes
+    read nfolds=4), on `device`: per entry 32 int32 words, word k =
+    limb 2k | limb 2k+1 << 16 of the 60 limbs ypx ++ ymx ++ t2d, words 30
+    and 31 zero."""
     t = tables.folding8_table() if nfolds == 8 else tables.folding4_table()
     t = t.reshape(len(t), 3 * NLIMBS)
     packed = np.zeros((len(t), 32), np.int32)
@@ -46,29 +47,10 @@ def packed_table(nfolds, device):
 
 
 @functools.lru_cache(maxsize=None)
-def mma_table(device):
-    """The folding-8 table as the B operand of the tensor-core gather of the
-    sign and fold-8 base-multiply kernels (csrc/gather_mma.cuh), on
-    `device`: entry e is 120 bytes, the low
-    and the high byte of each of its 60 limbs (byte 2j + h of limb j), and
-    the [256 entries x 120 bytes] matrix is stored per (k-step of 32
-    entries, n-tile of 8 bytes) as the 32 lanes' two mma.sync B registers:
-    lane 4g + t holds bytes 8nt + g of entries 32ks + 4t + i (register 0)
-    and 32ks + 16 + 4t + i (register 1), i = 0..3 from the low byte up.
-    int32 [8 * 15 * 32 * 2]."""
-    limbs = tables.folding8_table().reshape(256, 3 * NLIMBS)
-    b = np.empty((256, 6 * NLIMBS), np.uint8)
-    b[:, 0::2], b[:, 1::2] = limbs & 0xFF, limbs >> 8
-    # entry e = 32ks + 16h + 4t + i, byte p = 8nt + g -> [ks, nt, g, t, h, i]
-    frag = b.reshape(8, 2, 4, 4, 15, 8).transpose(0, 4, 5, 2, 1, 3)
-    return torch.as_tensor(np.ascontiguousarray(frag).view("<i4").reshape(-1),
-                           device=device)
-
-
-@functools.lru_cache(maxsize=None)
 def word_table(nfolds, device):
     """The folding table as the wide lanes read it (fold 4's byte modes,
-    nfolds=4; verify's double-scalar multiply, nfolds=8), on `device`: per
+    nfolds=4; verify's double-scalar multiply and, in the tensor-core
+    layout of mma_word_table, the fold-8 gathers, nfolds=8), on `device`: per
     entry 24 int32 words, each of ypx, ymx and t2d as the 8 little-endian
     32-bit words of its canonical value (the tables hold canonical limbs)."""
     t = tables.folding8_table() if nfolds == 8 else tables.folding4_table()
@@ -77,12 +59,33 @@ def word_table(nfolds, device):
     return torch.as_tensor(np.frombuffer(raw, "<i4").copy(), device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def mma_word_table(device):
+    """word_table(8) as the B operand of the tensor-core gather of the sign,
+    keygen and fold-8 base-multiply kernels (csrc/gather_mma.cuh), on
+    `device`: the [256 entries x 96 bytes] matrix of the entries' bytes,
+    its 12 n-tiles of 8 columns ordered so that each thread of a warp ends
+    with whole words (column 2t + b of n-tile 2k + h is byte 2h + b of word
+    4k + t of the entry), stored per (k-step of 32 entries, n-tile) as the
+    32 lanes' two mma.sync B registers: lane 4g + t holds column g of
+    entries 32ks + 4t + i (register 0) and 32ks + 16 + 4t + i (register 1),
+    i = 0..3 from the low byte up. int32 [8 * 12 * 32 * 2]."""
+    b = word_table(8, torch.device("cpu")).numpy().view(np.uint8)
+    # entry byte 16k + 4t + 2h + b -> column 8 (2k + h) + 2t + b
+    cols = b.reshape(256, 6, 4, 2, 2).transpose(0, 1, 3, 2, 4)
+    # entry e = 32ks + 16h + 4t + i, column c = 8nt + g -> [ks, nt, g, t, h, i]
+    frag = cols.reshape(8, 2, 4, 4, 12, 8).transpose(0, 4, 5, 2, 1, 3)
+    return torch.as_tensor(np.ascontiguousarray(frag).view("<i4").reshape(-1),
+                           device=device)
+
+
 def kernel_table(nfolds, mode, device):
-    """The table that the launch of (nfolds, mode) reads: the tensor-core
-    layout for fold 8, the word table for fold 4's byte modes (the wide
-    lane), the packed table for its limb modes (the 13-bit lane)."""
+    """The table that the launch of (nfolds, mode) reads: the word table in
+    the tensor-core layout for fold 8 (every mode), the word table for fold
+    4's byte modes (the wide lane), the packed table for its limb modes (the
+    13-bit lane)."""
     if nfolds == 8:
-        return mma_table(device)
+        return mma_word_table(device)
     return word_table(4, device) if mode in ("pk", "u_bytes") else \
         packed_table(4, device)
 

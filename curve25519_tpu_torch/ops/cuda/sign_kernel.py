@@ -115,7 +115,7 @@ def keygen(sk, zr=None, bl=None, bp=None):
     pk = torch.empty((n, 32), dtype=torch.uint8, device=sk.device)
     build.launch("sign", "keygen_launch", sk.device, pk.data_ptr(),
                  sk.data_ptr(), *_pointers(rows),
-                 edwards_kernel.mma_table(sk.device).data_ptr(), n)
+                 edwards_kernel.mma_word_table(sk.device).data_ptr(), n)
     launches["keygen"] += 1
     return unflatten(pk)
 
@@ -150,6 +150,6 @@ def sign_fused(priv, msg, msg_len, zr=None, bl=None, bp=None):
     build.launch("sign", "sign_launch", priv.device, sig.data_ptr(),
                  priv.data_ptr(), w2.data_ptr(), w2.shape[1], nb2.data_ptr(),
                  w3.data_ptr(), w3.shape[1], nb3.data_ptr(), *_pointers(rows),
-                 edwards_kernel.mma_table(priv.device).data_ptr(), n)
+                 edwards_kernel.mma_word_table(priv.device).data_ptr(), n)
     launches["sign"] += 1
     return unflatten(sig)

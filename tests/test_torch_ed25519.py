@@ -31,7 +31,7 @@ from curve25519_tpu.utils import bucketing as jbucketing
 
 from curve25519_tpu_torch import _custom_blind as tcb
 from curve25519_tpu_torch.config import ELL
-from curve25519_tpu_torch.models import blinding, ed25519, tables, x25519
+from curve25519_tpu_torch.models import blinding, ed25519, x25519
 from curve25519_tpu_torch.ops import sha512
 from curve25519_tpu_torch.ops.cuda import build, edwards_kernel, sign_kernel
 from curve25519_tpu_torch.parallel import mesh as pmesh
@@ -306,9 +306,10 @@ def test_mixed_devices_raise():
 
 
 def test_host_kernels_equal_plain(lib, rng):
-    """keygen_host (plain and blinded) with the masked scan and with the
-    host emulation of keygen_kernel's tensor-core gather (mma = 1, lane i at
-    position i % 32 of its warp), and sign_host, against the plain
+    """keygen_host (plain and blinded) through the wide fold-8 lane with the
+    masked scan of the word table and with the host emulation of
+    keygen_kernel's tensor-core gather (mma = 1, lane i at position i % 32
+    of its warp), and sign_host through the same lane, against the plain
     versions."""
     n = 4
     sk = rng.integers(0, 256, (n, 32), dtype=np.uint8)
@@ -318,8 +319,8 @@ def test_host_kernels_equal_plain(lib, rng):
     bp = np.ascontiguousarray(to_numpy(torch.cat(
         [ctx["bp"][k] for k in edwards_kernel.PE_KEYS])))
     cpu = torch.device("cpu")
-    table = to_numpy(edwards_kernel.packed_table(8, cpu))
-    frag = to_numpy(edwards_kernel.mma_table(cpu))
+    table = to_numpy(edwards_kernel.word_table(8, cpu))
+    frag = to_numpy(edwards_kernel.mma_word_table(cpu))
     plain = sign_kernel.keygen_plain(from_numpy(sk),
                                      zr=blinding.default_zr(device="cpu"))
     for mma, tbl in ((0, table), (1, frag)):
@@ -357,23 +358,24 @@ def test_host_kernels_equal_plain(lib, rng):
 
 def test_host_tensor_core_gather_equals_scan(lib):
     """The host emulation of the sign kernel's tensor-core gather (the A, B
-    and D fragment layouts of mma.m16n8k32 over edwards_kernel.mma_table,
-    csrc/gather_mma.cuh) against the masked scan gather<256> over the packed
-    table, and both against the table's rows: digits 0 and 255, all equal,
-    all distinct, and a partial warp."""
+    and D fragment layouts of mma.m16n8k32 over edwards_kernel.
+    mma_word_table, csrc/gather_mma.cuh) against the masked scan of the
+    word table, and both against the table's rows, the canonical words of
+    each entry: digits 0 and 255, all equal, all distinct, and a partial
+    warp."""
     cpu = torch.device("cpu")
-    packed = to_numpy(edwards_kernel.packed_table(8, cpu))
-    frag = to_numpy(edwards_kernel.mma_table(cpu))
-    limbs = tables.folding8_table().reshape(256, 60)
+    words = to_numpy(edwards_kernel.word_table(8, cpu)).view(np.uint32)
+    frag = to_numpy(edwards_kernel.mma_word_table(cpu))
+    rows = words.reshape(256, 24)
     perm = np.random.default_rng(3).permutation(256).astype(np.int32)
     cases = {"0 and 255": np.tile(np.array([0, 255], np.int32), 16),
              "all equal": np.full(32, 77, np.int32),
              "all distinct": perm,
              "partial warp": np.concatenate([perm[:32], perm[:13]])}
     for name, dig in cases.items():
-        want = limbs[dig]
-        for mma, table in ((0, packed), (1, frag)):
-            out = np.full((len(dig), 60), -1, np.int32)
+        want = rows[dig]
+        for mma, table in ((0, words), (1, frag)):
+            out = np.full((len(dig), 24), 0xFFFFFFFF, np.uint32)
             lib.gather_host(mma, out.ctypes.data, dig.ctypes.data,
                             table.ctypes.data, len(dig))
             np.testing.assert_array_equal(out, want, err_msg="%s mma=%d"

@@ -221,16 +221,17 @@ def test_calculate_public_key_fast_equals_ladder(rng):
 
 
 def host_basemult(lib, cut, zr, bp, mode, nfolds, mma=False):
-    """basemult.cu's lane code built with g++: fold 4 on the table and lane
-    that its kernel launch reads (edwards_kernel.kernel_table: the wide lane
-    for the byte modes); fold 8 by the masked scan, or (mma) the host
-    emulation of the tensor-core gather."""
+    """basemult.cu's lane code built with g++ on the table and lane that its
+    kernel launch reads (edwards_kernel.kernel_table: the wide lane for the
+    byte modes, the 13-bit lane for the limb modes); fold 8 by the masked
+    scan of the word table, or (mma) the host emulation of the tensor-core
+    gather over its B-order layout."""
     n = len(cut)
     cut = np.ascontiguousarray(cut, np.int32)
     cpu = torch.device("cpu")
-    table = to_numpy(edwards_kernel.mma_table(cpu) if mma
-                     else edwards_kernel.packed_table(8, cpu) if nfolds == 8
-                     else edwards_kernel.kernel_table(4, mode, cpu))
+    table = to_numpy(edwards_kernel.word_table(8, cpu) if nfolds == 8
+                     and not mma
+                     else edwards_kernel.kernel_table(nfolds, mode, cpu))
     byte_mode = mode in ("pk", "u_bytes")
     out = np.zeros((n, 32), np.uint8) if byte_mode else np.zeros((n, 40),
                                                                  np.int32)
@@ -247,10 +248,12 @@ def host_basemult(lib, cut, zr, bp, mode, nfolds, mma=False):
     pytest.param(8, False, id="8"), pytest.param(4, False, id="4"),
     pytest.param(8, True, id="8-mma")])
 def test_host_kernel_equals_plain(lib, rng, nfolds, mma):
-    """Every mode, with and without BP. The tensor-core gather's emulation
-    (the lane's digit at its own position in a warp whose other lanes ask for
-    other entries) runs on 3 lanes at positions 0, 1, 2 and is also held
-    against the masked scan. Fold 4 (the byte modes on the wide lane) also
+    """Every mode, with and without BP: the byte modes on the wide lane, the
+    limb modes on the 13-bit lane (fold 8's through the canonical words of
+    the same gather). The tensor-core gather's emulation (the lane's digit at
+    its own position in a warp whose other lanes ask for other entries) runs
+    on 3 lanes at positions 0, 1, 2 and is also held against the masked
+    scan. Fold 4 (the byte modes on the wide lane) also
     runs without zr, and on edge digits: all 0 (the identity: u_bytes 0, pk
     enc(0, 1)), all 15, and the clamped key of 32 0xFF bytes, whose top
     digit is set."""

@@ -558,29 +558,50 @@ def _check_wide_edwards_bounds():
     assert _within(_w_weak_carry([(0, (1 << 31) - 1)] * 10), W_TIGHT)
 
 
-def _check_wide_fold4_bounds():
-    """The fold-4 byte-mode lane of basemult.cu on interval limbs. The start
-    point from a table entry's from_words (canonical digits) and a
-    canonical zr (zr and BP arrive through from_bytes): x2 = ypx - ymx and
-    y2 = ypx + ymx are LOOSE, T a product, and Z = 2zr goes LOOSE into dbl,
-    which squares it only. A step, dbl then add_pa, on TIGHT state; add_pa
-    needs the weak_carry of D = 2Z: without it 19 F, a multiply's
-    pre-scaled operand, passes 32 bits. The BP add (add_pe with P read as
-    (Y+X, Y-X, T, Z)) and both epilogues' one inversion and multiplies."""
+def _w_gathered_coordinate():
+    """A coordinate of a fold-8 entry as the tensor-core gather hands it to
+    the lane (gather_mma.cuh): each word packed from four D values, each
+    exactly one byte of the one-hot product (pack_word's shifts, whose bytes
+    do not overlap), then from_words's masks: canonical digits, as fold 4's
+    words give."""
+    byte = _u(0, 255, 32)
+    word = (0, 0)
+    for k in range(4):
+        word = _iadd(word, _imul(byte, _k(1 << 8 * k), 32), 32)
+    return [_imask(word, w) for w in W_WIDTH]
+
+
+def _check_wide_fold_bounds():
+    """The fold lane of fold_wide.cuh on interval limbs, for fold 4's 64
+    digits (the scan of word_table(4)) and fold 8's 32 (the tensor-core
+    gather of word_table(8): basemult_fold8_kernel, keygen_kernel and
+    sign_kernel): the lanes differ only in the digit count and in where an
+    entry's words come from. The start point from a table entry's from_words
+    (canonical digits) and a canonical zr (zr and BP arrive through
+    from_bytes): x2 = ypx - ymx and y2 = ypx + ymx are LOOSE, T a product,
+    and Z = 2zr goes LOOSE into dbl, which squares it only. A step, dbl then
+    add_pa, on TIGHT state; add_pa needs the weak_carry of D = 2Z: without
+    it 19 F, a multiply's pre-scaled operand, passes 32 bits. Every output of
+    a step is TIGHT, so any number of steps stays inside the invariant. The
+    BP add (add_pe with P read as (Y+X, Y-X, T, Z)) and the epilogues' one
+    inversion and multiplies: u_bytes, and pk (ed_wide::pack, and pack_words
+    of keygen and sign, the same field ops)."""
     canonical = [(0, (1 << w) - 1) for w in W_WIDTH]
     tight = [(0, b - 1) for b in W_TIGHT]
-    entry = zr = canonical
-    x2, y2 = _w_sub(entry, entry), _w_add(entry, entry)
-    start = (_w_mul(x2, zr), _w_mul(y2, zr), _w_add(zr, zr),
-             _w_mul(_w_mul(entry, _W_CONST), zr))
-    state = (tight,) * 4
-    for p in (start, state):
-        for out in _w_dbl(p):
-            assert _within(out, W_TIGHT), out
-    for out in _w_add_pa(state, (entry,) * 3):
-        assert _within(out, W_TIGHT), out
-    with pytest.raises(AssertionError):
-        _w_add_pa(state, (entry,) * 3, carry_d=False)
+    zr = canonical
+    for ncuts, entry in ((64, canonical), (32, _w_gathered_coordinate())):
+        assert _within(entry, [1 << w for w in W_WIDTH]), ncuts
+        x2, y2 = _w_sub(entry, entry), _w_add(entry, entry)
+        start = (_w_mul(x2, zr), _w_mul(y2, zr), _w_add(zr, zr),
+                 _w_mul(_w_mul(entry, _W_CONST), zr))
+        state = (tight,) * 4
+        for p in (start, state):
+            for out in _w_dbl(p):
+                assert _within(out, W_TIGHT), (ncuts, out)
+        for out in _w_add_pa(state, (entry,) * 3):
+            assert _within(out, W_TIGHT), (ncuts, out)
+        with pytest.raises(AssertionError):
+            _w_add_pa(state, (entry,) * 3, carry_d=False)
     x, y, z, t = state
     for out in _w_add_pe((_w_add(y, x), _w_sub(y, x), t, z), (canonical,) * 4):
         assert _within(out, W_TIGHT), out
@@ -669,7 +690,7 @@ def _check_wide_core_bounds():
                 _w_mul(aa, bb), _w_mul(e, _w_msa(aa, e))):
         assert _within(out, W_TIGHT), out
     _check_wide_edwards_bounds()
-    _check_wide_fold4_bounds()
+    _check_wide_fold_bounds()
     _check_wide_poly_bounds()
 
 

@@ -1,12 +1,16 @@
-"""Measure the X25519 ladder, Verify_Init, fold-4 base-multiply, double-scalar
-multiply and one-shot verify kernels and the field cores on one CUDA card.
+"""Measure the X25519 ladder, Verify_Init, fold-4 and fold-8 base-multiply,
+double-scalar multiply, one-shot verify, keygen and sign kernels and the
+field cores on one CUDA card.
 
     python3 tools/ladder_probe.py [--parent DIR] [--variants 64:1,128:4]
                                   [--vinit-variants 128:3,64:6,256:2]
                                   [--fold4-variants 128:4:2,128:4:1,256:2:1]
                                   [--poly-variants 128:4,256:2]
                                   [--oneshot-variants 512:1:1:1,256:2:2:2]
-                                  [--only cores,ladder,vinit,poly,oneshot]
+                                  [--fold8-variants 128:4,256:2]
+                                  [--sign-variants 128:4,128:2]
+                                  [--only cores,ladder,vinit,poly,oneshot,
+                                          fold4,fold8,sign]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Prints one line per measurement and, last, one JSON object of them all;
@@ -25,12 +29,18 @@ builds into curve25519_tpu_torch/ops/cuda/_build/probe/ (git-ignored):
    the constant-time scan of the 16-entry table in shared memory, a table
    add): the 13-bit core's over the packed table (edwards_kernel.
    packed_table) and the wide core's over the word table (word_table,
-   csrc/fold4_wide.cuh). And one step of the double-scalar multiply per trip
+   csrc/fold_wide.cuh). And one step of the double-scalar multiply per trip
    (a doubling, a PA add of a fold-8 entry read by index, a PE add of a
    q_table entry read from int8 planes, both tables in shared memory): the
    wide core's as verify_lane.cuh's poly_lane does it (the word table, each
    PE coordinate decoded just before its multiply), and the 13-bit core's
-   (the packed table, the entry decoded whole).
+   (the packed table, the entry decoded whole). And one fold-8 step per trip
+   (a doubling, the tensor-core gather of csrc/gather_mma.cuh over the word
+   table in B order, edwards_kernel.mma_word_table, in dynamic shared
+   memory, each lane of a warp asking for its own entry, a table add): the
+   wide core's as fold_wide.cuh does it (the words through from_words), and
+   the 13-bit core's as the fold-8 limb modes do it (the words as 13-bit
+   limbs).
 2. Ladder builds: the checkout's csrc/ladder.cu as it ships; its lane
    function in a kernel of the probe's own at each `--variants`
    threads:min_blocks (block size and __launch_bounds__ minimum); and, with
@@ -46,7 +56,7 @@ builds into curve25519_tpu_torch/ops/cuda/_build/probe/ (git-ignored):
    keys (about half of them off the curve); planes and flags must agree.
 4. Fold-4 base-multiply builds, the same way: the checkout's
    basemult_fold4_kernel (csrc/basemult.cu) in the "u_bytes" mode of
-   calculate_public_key_fast(nfolds=4), its lane (fold4_wide::lane) at each
+   calculate_public_key_fast(nfolds=4), its lane (fold_wide::lane) at each
    `--fold4-variants` threads:min_blocks (0: no minimum), optionally with
    another count of scan entries per loop trip (:unroll), and the parent's
    basemult_fold4_kernel, each on the table its launch reads, on 262,144
@@ -63,6 +73,17 @@ builds into curve25519_tpu_torch/ops/cuda/_build/probe/ (git-ignored):
    scratch row per lane; barriers after both phases, after Verify_Init
    only as shipped, or none), and the parent's oneshot_kernel, on 262,144
    random keys and digits; bytes and flags must agree.
+7. Fold-8 byte-mode builds: the checkout's csrc/basemult.cu as it ships
+   and with FOLD8_BLOCK and FOLD8_MIN_BLOCKS set to each `--fold8-variants`
+   threads:min_blocks, basemult_fold8_kernel in the "u_bytes" mode of
+   calculate_public_key_fast on 262,144 random scalars' digits; the bytes
+   must agree. No parent build: a parent's fold-8 kernel may read another
+   table layout.
+8. Keygen and sign builds, the same way: the checkout's csrc/sign.cu as it
+   ships and with SIGN_BLOCK and SIGN_MIN_BLOCKS set to each
+   `--sign-variants` threads:min_blocks, keygen_kernel on 262,144 random
+   seeds and sign_kernel on 64-byte messages under those keys, both with
+   the default zr; the bytes must agree.
 """
 
 import argparse
@@ -95,7 +116,8 @@ CORES_SRC = r"""
 #include "fe25519_wide.cuh"
 #include "edwards25519.cuh"
 #include "edwards25519_wide.cuh"
-#include "fold4_wide.cuh"
+#include "fold_wide.cuh"
+#include "gather_mma.cuh"
 #include "verify_lane.cuh"
 #include <cuda_runtime.h>
 
@@ -253,10 +275,62 @@ DBL_CHAIN(wide_dbl, ed_wide, 10, uint32_t)
     }                                                                       \
   }
 
+// The wide core's scan of the 16-entry word table (fold_wide.cuh)
+FE_HD void wide_scan16(fe_wide::Fe& ypx, fe_wide::Fe& ymx, fe_wide::Fe& t2d,
+                       const uint32_t* tbl, int32_t idx) {
+  fold_wide::gather(ypx, ymx, t2d, fold_wide::ScanWords<16>{tbl}, idx);
+}
+
 STEP_CHAIN(fe13_fold4, ed25519, 20, int32_t, ed25519::kEntryWords,
            ed25519::gather<16>)
-STEP_CHAIN(wide_fold4, ed_wide, 10, uint32_t, fold4_wide::kWords,
-           fold4_wide::gather)
+STEP_CHAIN(wide_fold4, ed_wide, 10, uint32_t, fold_wide::kWords,
+           wide_scan16)
+
+// The gathered canonical words as the 13-bit core's limbs (basemult.cu's
+// Limbs13Gather, the fold-8 limb modes)
+FE_HD void fe13_words(fe25519::Fe& ypx, fe25519::Fe& ymx, fe25519::Fe& t2d,
+                      const gather_mma::Gather& words, int32_t idx) {
+  uint32_t w[3][8];
+  words(w, idx);
+  fe_wide::limbs13_from_words(ypx.v, w[0]);
+  fe_wide::limbs13_from_words(ymx.v, w[1]);
+  fe_wide::limbs13_from_words(t2d.v, w[2]);
+}
+
+// One fold-8 step per trip: P = 2P, the tensor-core gather of entry
+// (t + it) & 255 of the fold-8 word table in B order (each lane of a warp
+// its own entry), P = P + entry; the table and the warps' staging rows in
+// dynamic shared memory.
+#define FOLD8_CHAIN(NAME, NS, N, T, GATHER)                                 \
+  __global__ void __launch_bounds__(256) NAME(uint32_t* io,                 \
+                                              const uint32_t* table,        \
+                                              int iters) {                  \
+    extern __shared__ __align__(16) uint32_t smem[];                        \
+    const gather_mma::Gather words = gather_mma::load_table(smem, table);   \
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;                    \
+    NS::Ext p;                                                              \
+    _Pragma("unroll") for (int i = 0; i < N; i++) {                         \
+      p.x.v[i] = (T)io[(4 * t) * N + i];                                    \
+      p.y.v[i] = (T)io[(4 * t + 1) * N + i];                                \
+      p.z.v[i] = (T)io[(4 * t + 2) * N + i];                                \
+      p.t.v[i] = (T)io[(4 * t + 3) * N + i];                                \
+    }                                                                       \
+    _Pragma("unroll 1") for (int it = 0; it < iters; it++) {                \
+      p = NS::dbl(p);                                                       \
+      NS::Fe ypx, ymx, t2d;                                                 \
+      GATHER(ypx, ymx, t2d, words, (t + it) & 255);                         \
+      p = NS::add_pa(p, ypx, ymx, t2d);                                     \
+    }                                                                       \
+    _Pragma("unroll") for (int i = 0; i < N; i++) {                         \
+      io[(4 * t) * N + i] = (uint32_t)p.x.v[i];                             \
+      io[(4 * t + 1) * N + i] = (uint32_t)p.y.v[i];                         \
+      io[(4 * t + 2) * N + i] = (uint32_t)p.z.v[i];                         \
+      io[(4 * t + 3) * N + i] = (uint32_t)p.t.v[i];                         \
+    }                                                                       \
+  }
+
+FOLD8_CHAIN(fe13_fold8, ed25519, 20, int32_t, fe13_words)
+FOLD8_CHAIN(wide_fold8, ed_wide, 10, uint32_t, fold_wide::gather)
 
 // One step of the double-scalar multiply per trip: P = 2P, P = P + entry
 // (t + it) & 255 of the fold-8 table, P = P + q_table entry (7t + it) & 15,
@@ -346,6 +420,21 @@ LAUNCH(wide_dbl)
 STEP_LAUNCH(fe13_fold4)
 STEP_LAUNCH(wide_fold4)
 
+constexpr int kFold8ChainSmem =
+    4 * (gather_mma::kTableWords + 8 * gather_mma::kStageWords);
+#define FOLD8_LAUNCH(NAME)                                                  \
+  extern "C" int NAME##_launch(void* io, const void* table, int iters,     \
+                               int blocks, void* s) {                      \
+    const cudaError_t rc = cudaFuncSetAttribute(                            \
+        NAME, cudaFuncAttributeMaxDynamicSharedMemorySize, kFold8ChainSmem);\
+    if (rc != cudaSuccess) return (int)rc;                                  \
+    NAME<<<blocks, 256, kFold8ChainSmem, (cudaStream_t)s>>>(                \
+        (uint32_t*)io, (const uint32_t*)table, iters);                     \
+    return (int)cudaGetLastError();                                         \
+  }
+FOLD8_LAUNCH(fe13_fold8)
+FOLD8_LAUNCH(wide_fold8)
+
 #define POLY_LAUNCH(NAME)                                                   \
   extern "C" int NAME##_launch(void* io, const void* table,                \
                                const void* planes, int iters, int blocks,  \
@@ -361,10 +450,12 @@ POLY_LAUNCH(wide_poly)
 """
 
 # core -> (limbs, the bound of the random limbs that start each chain, its
-# chains; "fold4" takes the table of its step, "poly" its table and a
-# q_table)
-CORES = {"fe13": (20, 1 << 13, ("mul", "sqr", "dbl", "fold4", "poly")),
-         "wide": (10, 1 << 25, ("mul", "sqr", "dbl", "fold4", "poly")),
+# chains; "fold4" and "fold8" take the table of their step, "poly" its table
+# and a q_table)
+CORES = {"fe13": (20, 1 << 13, ("mul", "sqr", "dbl", "fold4", "fold8",
+                                "poly")),
+         "wide": (10, 1 << 25, ("mul", "sqr", "dbl", "fold4", "fold8",
+                                "poly")),
          "w8": (8, 1 << 32, ("mul", "sqr"))}
 
 
@@ -478,16 +569,19 @@ def run_cores(so, log, rng, card, iters=128):
              for op in ops]
     regs = build.parse_ptxas(log.read_text(), names)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
+    stepped = ("fold4", "fold8")
     lib = load(so, [n + "_launch" for n in names
-                    if "fold4" not in n and "poly" not in n],
+                    if n.split("_")[1] not in stepped + ("poly",)],
                [vp, i32, i32, vp])
-    load(so, [n + "_launch" for n in names if "fold4" in n],
+    load(so, [n + "_launch" for n in names if n.split("_")[1] in stepped],
          [vp, vp, i32, i32, vp], lib)
     load(so, [n + "_launch" for n in names if "poly" in n],
          [vp, vp, vp, i32, i32, vp], lib)
     dev = torch.device("cuda")
     tables = {("fe13", "fold4"): edwards_kernel.packed_table(4, dev),
               ("wide", "fold4"): edwards_kernel.word_table(4, dev),
+              ("fe13", "fold8"): edwards_kernel.mma_word_table(dev),
+              ("wide", "fold8"): edwards_kernel.mma_word_table(dev),
               ("fe13", "poly"): edwards_kernel.packed_table(8, dev),
               ("wide", "poly"): edwards_kernel.word_table(8, dev)}
     # one q_table of canonical limbs: 13-bit limbs below 2^13, the top one
@@ -507,7 +601,7 @@ def run_cores(so, log, rng, card, iters=128):
             io = torch.from_numpy(init.astype(np.uint32).view(np.int32)).cuda()
             entry = getattr(lib, name + "_launch")
             head = (io.data_ptr(),)
-            if op in ("fold4", "poly"):
+            if op in ("fold4", "fold8", "poly"):
                 head += (tables[core, op].data_ptr(),)
             if op == "poly":
                 head += (planes.data_ptr(),)
@@ -526,8 +620,8 @@ def run_cores(so, log, rng, card, iters=128):
                 ms_per_op=ms / iters)
             print("cores [%s]: %s %s, one trip of its chain: IMAD.WIDE %d, "
                   "other IMAD %d, ALU %d, all %d SASS instructions | %d "
-                  "registers, spill %d B | %.4f ms per op (fold4, poly: per "
-                  "step) over %d lanes" % (
+                  "registers, spill %d B | %.4f ms per op (fold4, fold8, "
+                  "poly: per step) over %d lanes" % (
                       card, core, op, row["imad_wide"], row["imad"],
                       row["alu"], row["total"], row["registers"],
                       row["spill_store_bytes"], row["ms_per_op"], BATCH))
@@ -595,17 +689,17 @@ probe_fold4_kernel(char* out, const int32_t* __restrict__ cut,
                    const int32_t* __restrict__ zr, int64_t zr_stride,
                    const int32_t* __restrict__ bp, int64_t bp_stride,
                    const uint32_t* __restrict__ table, int mode, int64_t n) {
-  constexpr int kTableWords = fold4_wide::kNent * fold4_wide::kWords;
+  constexpr int kTableWords = 16 * fold_wide::kWords;
   __shared__ __align__(16) uint32_t tbl[kTableWords];
   for (int i = threadIdx.x; i < kTableWords; i += blockDim.x)
     tbl[i] = table[i];
   __syncthreads();
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  fold4_wide::lane((uint8_t*)out + 32 * lane, cut + 64 * lane,
-                   zr ? zr + zr_stride * lane : nullptr,
-                   bp ? bp + bp_stride * lane : nullptr, mode == MODE_PK,
-                   tbl);
+  fold_wide::lane<64>((uint8_t*)out + 32 * lane, cut + 64 * lane,
+                      zr ? zr + zr_stride * lane : nullptr,
+                      bp ? bp + bp_stride * lane : nullptr, mode == MODE_PK,
+                      fold_wide::ScanWords<16>{tbl});
 }
 
 // basemult_launch's arguments, for the byte modes of fold 4
@@ -962,8 +1056,94 @@ def run_oneshots(jobs, parent, inputs, card):
                            tables[name].data_ptr(), BATCH), card)
 
 
+# Builds of a checkout's source as it ships with its launch-shape macros set
+# (a variant's numbers, in this order): what -> (its source in csrc/, the
+# macros).
+SHAPES = {
+    "fold8": ("basemult.cu", ("FOLD8_BLOCK", "FOLD8_MIN_BLOCKS")),
+    "sign": ("sign.cu", ("SIGN_BLOCK", "SIGN_MIN_BLOCKS")),
+}
+
+
+def shape_builds(what, variants):
+    """Start one nvcc per build of SHAPES[what]'s source: as it ships, and
+    with each variant's macros set. Returns name -> (library, (process,
+    log))."""
+    src, macros = SHAPES[what]
+    PROBE_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for values in [()] + list(variants):
+        name = "%s_shipped" % what
+        if values:
+            name = "%s_t%d_m%d" % ((what,) + tuple(values))
+        flags = ["-D%s=%d" % mv for mv in zip(macros, values)]
+        so = PROBE_DIR / ("lib%s.so" % name)
+        jobs[name] = (so, nvcc_build(build.CSRC / src, so, flags=flags))
+    return jobs
+
+
+def run_fold8s(builds, rng, card):
+    """The fold-8 byte-mode builds in the "u_bytes" mode of
+    calculate_public_key_fast on the digits of random clamped scalars, no zr
+    and no BP (the longest loop is one step)."""
+    dev = torch.device("cuda")
+    sk = torch.from_numpy(rng.integers(0, 256, (BATCH, 32), np.uint8))
+    cut = fold.cut8_bytes(codec.clamp(sk.to(dev))).contiguous()
+    table = edwards_kernel.mma_word_table(dev)
+    mode = edwards_kernel.MODES["u_bytes"]
+    jobs = {name: (so, "basemult_launch", "basemult_fold8_kernel", job)
+            for name, (so, job) in builds.items()}
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    return run_in_turns(
+        "fold8", jobs, [vp, vp, vp, i64, vp, i64, vp, i32, i32, i64, vp],
+        lambda: (torch.empty((BATCH, 32), dtype=torch.uint8, device=dev),),
+        lambda name, out: (out[0].data_ptr(), cut.data_ptr(), None, 0, None,
+                           0, table.data_ptr(), 8, mode, BATCH), card)
+
+
+def run_signs(builds, rng, card):
+    """The sign.cu builds: keygen_kernel on random seeds, then sign_kernel on
+    64-byte messages under those keys, both with the default zr and no
+    blinding, as the API's main paths call them (each longest loop is one
+    fold step)."""
+    from curve25519_tpu_torch.models import blinding
+    from curve25519_tpu_torch.ops import sha512
+    dev = torch.device("cuda")
+    sk = torch.from_numpy(rng.integers(0, 256, (BATCH, 32), np.uint8)).to(dev)
+    msg = torch.from_numpy(rng.integers(0, 256, (BATCH, 64), np.uint8)).to(dev)
+    lengths = torch.full((BATCH,), 64, dtype=torch.int32, device=dev)
+    zr = blinding.default_zr(device=dev)
+    table = edwards_kernel.mma_word_table(dev)
+    (w2, nb2, _), (w3, nb3, _) = (
+        sha512.pack_words(msg, lengths, prefix=msg.new_zeros(BATCH, hole))
+        for hole in (32, 64))
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    pk = torch.empty((BATCH, 32), dtype=torch.uint8, device=dev)
+    rows = {"keygen": run_in_turns(
+        "keygen", {name: (so, "keygen_launch", "keygen_kernel", job)
+                   for name, (so, job) in builds.items()},
+        [vp, vp, vp, i64, vp, i64, vp, i64, vp, i64, vp],
+        lambda: (pk,),
+        lambda name, out: (out[0].data_ptr(), sk.data_ptr(), zr.data_ptr(),
+                           0, None, 0, None, 0, table.data_ptr(), BATCH),
+        card)}
+    priv = torch.cat([sk, pk], -1)
+    rows["sign"] = run_in_turns(
+        "sign", {name: (so, "sign_launch", "sign_kernel", job)
+                 for name, (so, job) in builds.items()},
+        [vp, vp, vp, i64, vp, vp, i64, vp, vp, i64, vp, i64, vp, i64, vp, i64,
+         vp],
+        lambda: (torch.empty((BATCH, 64), dtype=torch.uint8, device=dev),),
+        lambda name, out: (out[0].data_ptr(), priv.data_ptr(), w2.data_ptr(),
+                           w2.shape[1], nb2.data_ptr(), w3.data_ptr(),
+                           w3.shape[1], nb3.data_ptr(), zr.data_ptr(), 0,
+                           None, 0, None, 0, table.data_ptr(), BATCH), card)
+    return rows
+
+
 # the parts of a run, in order
-PARTS = ("cores", "ladder", "vinit", "fold4", "poly", "oneshot")
+PARTS = ("cores", "ladder", "vinit", "fold4", "poly", "oneshot", "fold8",
+         "sign")
 
 
 def card_line():
@@ -998,6 +1178,12 @@ def main(argv=None):
                     "none, 1: the block meets after each phase, 2: after "
                     "Verify_Init only; balanced 1: each block a contiguous "
                     "share of the lanes)")
+    ap.add_argument("--fold8-variants", default="128:4,256:2",
+                    help="threads:min_blocks builds of this checkout's "
+                    "basemult.cu (FOLD8_BLOCK, FOLD8_MIN_BLOCKS)")
+    ap.add_argument("--sign-variants", default="128:4,128:2",
+                    help="threads:min_blocks builds of this checkout's "
+                    "sign.cu (SIGN_BLOCK, SIGN_MIN_BLOCKS)")
     ap.add_argument("--only", default=",".join(PARTS),
                     help="the parts to run, of %s" % ",".join(PARTS))
     args = ap.parse_args(argv)
@@ -1018,11 +1204,16 @@ def main(argv=None):
                 "fold4": args.fold4_variants, "poly": args.poly_variants,
                 "oneshot": args.oneshot_variants}
     builds = {what: probe_builds(what, pairs(variants[what]), args.parent)
-              for what in PARTS[1:] if what in only}
+              for what in KERNELS if what in only}
+    shapes = {"fold8": args.fold8_variants, "sign": args.sign_variants}
+    shaped = {what: shape_builds(what, pairs(shapes[what]))
+              for what in SHAPES if what in only}
     if "poly" in only or "oneshot" in only:      # their planes come from it
         builds.setdefault("vinit", probe_builds("vinit", [], None))
     jobs = {"%s %s" % (what, n): j[3] for what, js in builds.items()
             for n, j in js.items()}
+    jobs.update({"%s %s" % (what, n): j[1] for what, js in shaped.items()
+                 for n, j in js.items()})
     if "cores" in only:
         so, job = start_cores_build()
         jobs["cores"] = job
@@ -1045,6 +1236,10 @@ def main(argv=None):
     if "oneshot" in only:
         result["oneshots"] = run_oneshots(builds["oneshot"], args.parent,
                                           inputs, card)
+    if "fold8" in only:
+        result["fold8s"] = run_fold8s(shaped["fold8"], rng, card)
+    if "sign" in only:
+        result["signs"] = run_signs(shaped["sign"], rng, card)
     print(json.dumps(result))
 
 
