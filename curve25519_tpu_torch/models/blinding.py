@@ -26,6 +26,7 @@ from curve25519_tpu_torch.config import ED_2D, ELL, NLIMBS, P, int_to_limbs
 from curve25519_tpu_torch.models import edwards
 from curve25519_tpu_torch.ops import fe, fold, sc, sha512
 from curve25519_tpu_torch.ops.cuda import as_bytes, pick_device
+from curve25519_tpu_torch.utils import profiling
 
 __all__ = ["blinding_init", "blinding_init_device", "blinding_finish",
            "static_blinding", "default_zr", "fresh_zr", "as_batch"]
@@ -129,6 +130,7 @@ def blinding_finish(ctx):
 
 
 @functools.lru_cache(maxsize=None)
+@profiling.spanned("blinding.static_zr")
 def _static_zr(device):
     return static_blinding(device)["zr"]
 

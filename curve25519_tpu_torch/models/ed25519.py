@@ -35,7 +35,7 @@ from curve25519_tpu_torch.ops import codec, fe, fold, sc, sha512
 from curve25519_tpu_torch.ops.cuda import (
     as_bytes, pick_device, sign_kernel, verify_kernel,
 )
-from curve25519_tpu_torch.utils import bucketing
+from curve25519_tpu_torch.utils import bucketing, profiling
 
 __all__ = ["create_keypair", "sign", "verify", "verify_init", "verify_check",
            "verify_tablefree", "verify_finish", "sign_ragged", "verify_ragged",
@@ -73,16 +73,18 @@ def _msg_len(msg_len, msg, dev):
     return torch.as_tensor(msg_len, dtype=torch.int32, device=dev)
 
 
+@profiling.spanned("ed25519.sign", n=profiling.rows)
 def sign(priv, msg, msg_len=None, blinding=None, device=None):
     """64-byte signatures (R, S): priv [..., 64] (sk || pk), msg [..., L]
     uint8, msg_len [...] int32 live bytes (default L)."""
-    dev = pick_device(priv, msg, msg_len, device=device)
-    priv = as_bytes(priv, "priv", 64, dev)
-    msg = as_bytes(msg, "msg", None, dev)
-    dev = priv.device
+    with profiling.span("ed25519.inputs"):
+        dev = pick_device(priv, msg, msg_len, device=device)
+        priv = as_bytes(priv, "priv", 64, dev)
+        msg = as_bytes(msg, "msg", None, dev)
+        dev = priv.device
+        msg_len = _msg_len(msg_len, msg, dev)
+        zr, bl, bp = _blinding_args(blinding, dev)
     L = msg.shape[-1]
-    msg_len = _msg_len(msg_len, msg, dev)
-    zr, bl, bp = _blinding_args(blinding, dev)
     route = (sign_kernel.sign_fused if sign_kernel.max_fused_msg_len(L)
              else sign_kernel.sign_composed)
     return route(priv, msg, msg_len, zr=zr, bl=bl, bp=bp)
@@ -101,6 +103,7 @@ def verify_init(pk, device=None):
     return {"pk": pk, "planes": planes, "ok": ok}
 
 
+@profiling.spanned("ed25519.inputs")
 def _inputs(pk, sig, msg, msg_len):
     """(sig, msg, msg_len, batch) on pk's device, msg broadcast to the
     batch of the three."""
@@ -112,6 +115,7 @@ def _inputs(pk, sig, msg, msg_len):
     return sig, msg, _msg_len(msg_len, msg, pk.device), batch
 
 
+@profiling.spanned("ed25519.digits")
 def _digits(sig, pk, msg, msg_len, batch):
     """The fold digits (u of S, v of h = SHA512(R || pk || m) mod l)."""
     prefix = torch.cat([sig[..., :32].expand(batch + (32,)),
@@ -121,6 +125,7 @@ def _digits(sig, pk, msg, msg_len, batch):
             fold.cut4_limbs(h))
 
 
+@profiling.spanned("ed25519.verdict")
 def _verdict(r_bytes, ok, sig, strict):
     """R' == R as encodings, the key decoded, and with strict S < l."""
     result = (r_bytes == sig[..., :32]).all(-1) & ok
@@ -144,6 +149,7 @@ def verify_check(ctx, sig, msg, msg_len=None, strict=False):
                     strict)
 
 
+@profiling.spanned("ed25519.verify", n=torch.Tensor.numel)
 def verify(sig, pk, msg, msg_len=None, strict=False, device=None):
     """One-shot verify: [...] bool (reference ed25519_VerifySignature). On
     a card, SHA-512 and the one-shot kernel; on the CPU the two plain

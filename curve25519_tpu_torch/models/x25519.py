@@ -16,6 +16,7 @@ from curve25519_tpu_torch.ops import codec, fold
 from curve25519_tpu_torch.ops.cuda import (
     as_bytes, edwards_kernel, ladder_kernel, pick_device,
 )
+from curve25519_tpu_torch.utils import profiling
 
 __all__ = ["calculate_public_key", "calculate_public_key_fast",
            "create_shared_key"]
@@ -34,6 +35,7 @@ def calculate_public_key(sk, zr=None, device=None):
         _base_u(sk.shape[:-1], sk.device), sk, zr=zr)
 
 
+@profiling.spanned("x25519.calculate_public_key_fast", n=profiling.rows)
 def calculate_public_key_fast(sk, zr=None, nfolds=8, device=None):
     """pk via the folding base-point multiply on the Edwards curve and the
     birational map u = (Z+Y)/(Z-Y). nfolds=8 uses the 256-entry folding
@@ -48,6 +50,7 @@ def calculate_public_key_fast(sk, zr=None, nfolds=8, device=None):
                                     nfolds=nfolds)
 
 
+@profiling.spanned("x25519.create_shared_key", n=profiling.rows)
 def create_shared_key(peer_pk, sk, zr=None, device=None):
     """shared = clamp(sk) * peer_pk."""
     return ladder_kernel.point_multiply_cuda(peer_pk, sk, zr=zr,

@@ -4,9 +4,12 @@ modified in place."""
 
 import torch
 
+from curve25519_tpu_torch.utils import profiling
+
 __all__ = ["clamp", "scalar_bits", "pack_point", "unpack_parity"]
 
 
+@profiling.spanned("codec.clamp")
 def clamp(sk):
     """Clamp a secret scalar: sk[0] &= 0xf8; sk[31] = (sk[31]|0x40) & 0x7f."""
     sk = sk.clone()

@@ -40,6 +40,8 @@ from pathlib import Path
 
 import torch
 
+from curve25519_tpu_torch.utils import profiling
+
 __all__ = ["LIBRARIES", "build_cuda", "load_cuda", "launch", "build_host",
            "load_host", "nvcc"]
 
@@ -183,25 +185,29 @@ def _build_cuda(names):
 def load_cuda(name):
     """Load (building if missing or stale) one CUDA library; returns the
     ctypes CDLL with its argument types declared."""
-    with _build_lock(BUILD_DIR):
-        if _stale(_so(name)):
-            _build_cuda([name])
-    lib = ctypes.CDLL(str(_so(name)))
-    for fn, argtypes in LIBRARIES[name][1].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.cuda_error_string.argtypes = [ctypes.c_int]
-    lib.cuda_error_string.restype = ctypes.c_char_p
+    with profiling.span("build.load_cuda." + name):
+        with _build_lock(BUILD_DIR):
+            if _stale(_so(name)):
+                with profiling.span("build.nvcc." + name):
+                    _build_cuda([name])
+        lib = ctypes.CDLL(str(_so(name)))
+        for fn, argtypes in LIBRARIES[name][1].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def launch(name, fn, device, *args):
+def launch(name, fn, device, *args, n=None):
     """Call launch entry `fn` of library `name` with `args` and the current
-    stream of `device` appended; raises on a nonzero return."""
+    stream of `device` appended; raises on a nonzero return. The call is
+    the span launch.<name>, with `n` (the lanes) as its work count."""
     lib = load_cuda(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
+        with profiling.span("launch." + name, n):
+            rc = getattr(lib, fn)(*args, stream)
     if rc != 0:
         raise RuntimeError("%s failed: %s"
                            % (fn, lib.cuda_error_string(rc).decode()))

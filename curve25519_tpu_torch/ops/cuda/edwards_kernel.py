@@ -23,6 +23,7 @@ from curve25519_tpu_torch.ops import fe
 from curve25519_tpu_torch.ops.cuda import (
     as_limbs, build, flatten_batch, use_cuda,
 )
+from curve25519_tpu_torch.utils import profiling
 
 __all__ = ["base_mult", "base_mult_plain", "packed_table", "word_table",
            "mma_word_table", "kernel_table", "launches", "MODES"]
@@ -34,6 +35,7 @@ launches = 0
 
 
 @functools.lru_cache(maxsize=None)
+@profiling.spanned("edwards_kernel.packed_table")
 def packed_table(nfolds, device):
     """The folding table in the 13-bit lane's layout (fold 4's limb modes
     read nfolds=4), on `device`: per entry 32 int32 words, word k =
@@ -47,6 +49,7 @@ def packed_table(nfolds, device):
 
 
 @functools.lru_cache(maxsize=None)
+@profiling.spanned("edwards_kernel.word_table")
 def word_table(nfolds, device):
     """The folding table as the wide lanes read it (fold 4's byte modes,
     nfolds=4; verify's double-scalar multiply and, in the tensor-core
@@ -60,6 +63,7 @@ def word_table(nfolds, device):
 
 
 @functools.lru_cache(maxsize=None)
+@profiling.spanned("edwards_kernel.mma_word_table")
 def mma_word_table(device):
     """word_table(8) as the B operand of the tensor-core gather of the sign,
     keygen and fold-8 base-multiply kernels (csrc/gather_mma.cuh), on
@@ -160,7 +164,7 @@ def base_mult(cut, zr=None, bp=None, mode="affine", nfolds=8):
                  cut.data_ptr(),
                  None if zr_rows is None else zr_rows.data_ptr(), zr_stride,
                  None if bp_rows is None else bp_rows.data_ptr(), bp_stride,
-                 table.data_ptr(), nfolds, MODES[mode], n)
+                 table.data_ptr(), nfolds, MODES[mode], n, n=n)
     launches += 1
     if byte_mode:
         return unflatten(out)

@@ -49,6 +49,6 @@ def point_multiply_cuda(point_bytes, sk_bytes, zr=None, device=None):
     out = torch.empty((n, 32), dtype=torch.uint8, device=sk.device)
     build.launch("ladder", "x25519_ladder_launch", sk.device, out.data_ptr(),
                  point.data_ptr(), sk.data_ptr(),
-                 None if zr is None else zr.data_ptr(), n)
+                 None if zr is None else zr.data_ptr(), n, n=n)
     launches += 1
     return unflatten(out)

@@ -124,6 +124,6 @@ def sha512_blocks(words, nblocks):
         words = words.clone()
     out = torch.empty((n, 64), dtype=torch.uint8, device=words.device)
     build.launch("sha512", "sha512_launch", words.device, out.data_ptr(),
-                 words.data_ptr(), nblocks.data_ptr(), nw, n)
+                 words.data_ptr(), nblocks.data_ptr(), nw, n, n=n)
     launches += 1
     return out

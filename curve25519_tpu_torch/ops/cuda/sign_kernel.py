@@ -25,6 +25,7 @@ from curve25519_tpu_torch.ops import codec, fe, fold, sc, sha512
 from curve25519_tpu_torch.ops.cuda import (
     as_limbs, build, edwards_kernel, flatten_batch, use_cuda,
 )
+from curve25519_tpu_torch.utils import profiling
 
 __all__ = ["keygen", "keygen_plain", "sign_fused", "sign_composed",
            "sign_plain", "max_fused_msg_len", "MAX_FUSED_BLOCKS", "launches"]
@@ -86,10 +87,11 @@ def _blinding_rows(zr, bl, bp, batch, n, device):
     edwards_kernel.limb_rows)."""
     if (bl is None) != (bp is None):
         raise ValueError("bl and bp go together")
-    pairs = [edwards_kernel.limb_rows(
-        None if x is None else as_limbs(x, name, NLIMBS, device), batch, n)
-        for name, x in (("zr", zr), ("bl", bl))]
-    pairs.append(edwards_kernel.pe_rows(bp, batch, n, device))
+    with profiling.span("sign_kernel.blinding_rows"):
+        pairs = [edwards_kernel.limb_rows(
+            None if x is None else as_limbs(x, name, NLIMBS, device), batch,
+            n) for name, x in (("zr", zr), ("bl", bl))]
+        pairs.append(edwards_kernel.pe_rows(bp, batch, n, device))
     return pairs
 
 
@@ -115,7 +117,7 @@ def keygen(sk, zr=None, bl=None, bp=None):
     pk = torch.empty((n, 32), dtype=torch.uint8, device=sk.device)
     build.launch("sign", "keygen_launch", sk.device, pk.data_ptr(),
                  sk.data_ptr(), *_pointers(rows),
-                 edwards_kernel.mma_word_table(sk.device).data_ptr(), n)
+                 edwards_kernel.mma_word_table(sk.device).data_ptr(), n, n=n)
     launches["keygen"] += 1
     return unflatten(pk)
 
@@ -139,17 +141,20 @@ def sign_fused(priv, msg, msg_len, zr=None, bl=None, bp=None):
                                    msg_len.shape)
     n, unflatten = flatten_batch(batch)
     L = msg.shape[-1]
-    priv = priv.expand(batch + (64,)).reshape(n, 64).contiguous()
-    msg = msg.expand(batch + (L,)).reshape(n, L)
-    msg_len = msg_len.expand(batch).reshape(n)
-    # the message hashes with a zero hole for the in-kernel prefixes
-    w2, nb2, _ = sha512.pack_words(msg, msg_len, prefix=msg.new_zeros(n, 32))
-    w3, nb3, _ = sha512.pack_words(msg, msg_len, prefix=msg.new_zeros(n, 64))
+    with profiling.span("sign_kernel.rows", n):
+        priv = priv.expand(batch + (64,)).reshape(n, 64).contiguous()
+        msg = msg.expand(batch + (L,)).reshape(n, L)
+        msg_len = msg_len.expand(batch).reshape(n)
+        # the message hashes with a zero hole for the in-kernel prefixes
+        hole2, hole3 = msg.new_zeros(n, 32), msg.new_zeros(n, 64)
+    w2, nb2, _ = sha512.pack_words(msg, msg_len, prefix=hole2)
+    w3, nb3, _ = sha512.pack_words(msg, msg_len, prefix=hole3)
     rows = _blinding_rows(zr, bl, bp, batch, n, priv.device)
     sig = torch.empty((n, 64), dtype=torch.uint8, device=priv.device)
     build.launch("sign", "sign_launch", priv.device, sig.data_ptr(),
                  priv.data_ptr(), w2.data_ptr(), w2.shape[1], nb2.data_ptr(),
                  w3.data_ptr(), w3.shape[1], nb3.data_ptr(), *_pointers(rows),
-                 edwards_kernel.mma_word_table(priv.device).data_ptr(), n)
+                 edwards_kernel.mma_word_table(priv.device).data_ptr(), n,
+                 n=n)
     launches["sign"] += 1
     return unflatten(sig)

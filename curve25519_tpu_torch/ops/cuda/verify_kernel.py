@@ -30,6 +30,7 @@ from curve25519_tpu_torch.ops import fe
 from curve25519_tpu_torch.ops.cuda import (
     build, edwards_kernel, flatten_batch, use_cuda,
 )
+from curve25519_tpu_torch.utils import profiling
 
 __all__ = ["verify_init", "verify_init_plain", "poly_mult", "poly_mult_plain",
            "verify_oneshot", "verify_oneshot_plain", "launches"]
@@ -109,7 +110,7 @@ def verify_init(pk):
     planes = torch.empty((n,) + QT_SHAPE, dtype=torch.int8, device=pk.device)
     ok = torch.empty((n,), dtype=torch.bool, device=pk.device)
     build.launch("verify", "verify_init_launch", pk.device, planes.data_ptr(),
-                 ok.data_ptr(), pk.data_ptr(), n)
+                 ok.data_ptr(), pk.data_ptr(), n, n=n)
     launches["verify_init"] += 1
     return unflatten(planes), unflatten(ok)
 
@@ -133,7 +134,7 @@ def poly_mult(u, v, planes):
     out = torch.empty((n, 32), dtype=torch.uint8, device=u.device)
     build.launch("poly", "poly_launch", u.device, out.data_ptr(),
                  u.data_ptr(), v.data_ptr(), planes.data_ptr(), int(shared),
-                 edwards_kernel.word_table(8, u.device).data_ptr(), n)
+                 edwards_kernel.word_table(8, u.device).data_ptr(), n, n=n)
     launches["poly_shared" if shared else "poly"] += 1
     return unflatten(out)
 
@@ -156,16 +157,17 @@ def verify_oneshot(pk, u, v):
         return verify_oneshot_plain(pk, u, v)
     batch = torch.broadcast_shapes(pk.shape[:-1], u.shape[:-1], v.shape[:-1])
     n, unflatten = flatten_batch(batch)
-    pk = _rows(pk, batch, n, (32,))
-    u, v = _rows(u, batch, n, (32,)), _rows(v, batch, n, (64,))
-    out = torch.empty((n, 32), dtype=torch.uint8, device=pk.device)
-    ok = torch.empty((n,), dtype=torch.bool, device=pk.device)
-    rows = oneshot_scratch_rows(n, pk.device)
-    scratch = torch.empty((rows,) + QT_SHAPE, dtype=torch.int8,
-                          device=pk.device)
+    with profiling.span("verify_kernel.oneshot_rows", n):
+        pk = _rows(pk, batch, n, (32,))
+        u, v = _rows(u, batch, n, (32,)), _rows(v, batch, n, (64,))
+        out = torch.empty((n, 32), dtype=torch.uint8, device=pk.device)
+        ok = torch.empty((n,), dtype=torch.bool, device=pk.device)
+        rows = oneshot_scratch_rows(n, pk.device)
+        scratch = torch.empty((rows,) + QT_SHAPE, dtype=torch.int8,
+                              device=pk.device)
     build.launch("oneshot", "oneshot_launch", pk.device, out.data_ptr(),
                  ok.data_ptr(), scratch.data_ptr(), rows, pk.data_ptr(),
                  u.data_ptr(), v.data_ptr(),
-                 edwards_kernel.word_table(8, pk.device).data_ptr(), n)
+                 edwards_kernel.word_table(8, pk.device).data_ptr(), n, n=n)
     launches["oneshot"] += 1
     return unflatten(out), unflatten(ok)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from curve25519_tpu_torch.config import BITS
+from curve25519_tpu_torch.utils import profiling
 
 __all__ = ["cut8", "cut4", "cut8_bytes", "cut4_bytes",
            "cut8_limbs", "cut4_limbs"]
@@ -70,6 +71,7 @@ def _cut_gather(x, nfolds, radix_bits):
     return (g * _weights(idx.shape[1], x.device)).sum(-1, dtype=torch.int32)
 
 
+@profiling.spanned("fold.cut8_bytes")
 def cut8_bytes(b):
     """[..., 32] uint8 LE scalar bytes -> [..., 32] 8-fold digits."""
     return _cut_gather(b, 8, 8)
@@ -86,6 +88,7 @@ def cut8_limbs(x):
     return _cut_gather(x, 8, BITS)
 
 
+@profiling.spanned("fold.cut4_limbs")
 def cut4_limbs(x):
     """[..., NLIMBS] normalized limbs -> [..., 64] 4-fold digits."""
     return _cut_gather(x, 4, BITS)

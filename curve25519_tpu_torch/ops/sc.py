@@ -23,6 +23,7 @@ from curve25519_tpu_torch.config import BITS, ELL, MASK, NLIMBS, int_to_limbs
 from curve25519_tpu_torch.ops import fe
 from curve25519_tpu_torch.ops.cuda import as_bytes
 from curve25519_tpu_torch.ops.fe import _carry_seq as _carry, _mul_cols
+from curve25519_tpu_torch.utils import profiling
 
 __all__ = ["from_int", "mod", "add", "neg", "sub_from_ell", "mul", "muladd",
            "from_bytes", "from_bytes_raw", "to_bytes", "from_digest", "inv",
@@ -136,6 +137,7 @@ def to_bytes(x):
     return fe.norm_to_bytes(x)
 
 
+@profiling.spanned("sc.from_digest")
 def from_digest(md):
     """512-bit digest ([..., 64] uint8, little-endian) -> canonical scalar
     mod l."""

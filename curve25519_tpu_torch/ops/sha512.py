@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from curve25519_tpu_torch.ops.cuda import (
     as_bytes, flatten_batch, pick_device, sha512_kernel,
 )
+from curve25519_tpu_torch.utils import profiling
 
 __all__ = ["sha512", "sha512_plain", "sha512_bytes", "pack_words",
            "nblocks_static", "Sha512", "DIGEST_LEN", "BLOCK_LEN"]
@@ -62,6 +63,7 @@ def _pack4(x):
     return (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) | b[..., 3]
 
 
+@profiling.spanned("sha512.pack_words", n=lambda out: 4 * out[0].numel())
 def pack_words(msg, length, prefix=None):
     """FIPS 180-4 padding in the word domain.
 

@@ -47,6 +47,7 @@ from curve25519_tpu_torch.utils import interop, profiling
 from curve25519_tpu_torch.utils.interop import to_numpy
 
 from test_torch_ladder_host import jax_host_core
+from test_torch_profiling import check_recorder
 from torch_mp_worker import inputs as mp_inputs
 
 # the carriers default to the card: these tests ask for the CPU
@@ -291,6 +292,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching(
     assert ladder_kernel.launches == before
     assert torch.equal(got, montgomery.point_multiply(peer, sk))
     _check_trace_and_counters(tmp_path, monkeypatch)
+    monkeypatch.undo()
+    check_recorder(tmp_path, monkeypatch)
 
 
 def _check_trace_and_counters(tmp_path, monkeypatch):
