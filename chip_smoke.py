@@ -26,8 +26,9 @@ nothing of JAX or of the JAX package. Phases, each printing a line:
    versions, byte for byte: 4,096 random lanes, ragged batches, rank-1 and
    broadcast calls, fold 8 and fold 4 with all four base-multiply modes
    (both folds also at every ragged size), the blinded routes (which must not change a
-   byte; keygen and sign also at every ragged size), SHA-512 at the padding edges and sign at the fused cap (943/944-byte
-   messages);
+   byte; keygen and sign also at every ragged size), SHA-512 and its
+   packing kernel at the padding edges and sign at the fused cap
+   (943/944-byte messages);
 7. Ed25519 known answers: RFC 8032 7.1 TEST 1-3, SHA-512 against hashlib,
    and random lanes (short and long messages) against an independent
    Python-integer Ed25519;
@@ -36,8 +37,11 @@ nothing of JAX or of the JAX package. Phases, each printing a line:
    messages, the same sign blinded, calculate_public_key_fast with fold 8
    and fold 4 (held equal to the ladder's calculate_public_key on all
    lanes), sha512 of 64-byte messages, and the long-message sign (1,024
-   lanes, 944-4,096 bytes); then each kernel timed against its plain
-   version at the same batch, one call of each base-multiply limb-mode
+   lanes, 944-4,096 bytes), the SHA-512 packing kernel counted on each;
+   then each kernel timed against its plain version at the same batch, the
+   packing kernel at the verify and TLS shapes (165,000 x 1,167 bytes
+   behind a 64-byte prefix; 262,144 x 130 behind 32- and 64-byte zero
+   holes broadcast from one row), one call of each base-multiply limb-mode
    kernel (on no main path) beside its bound, and SHA-512 of 1,024
    messages of up to 1 MiB
    (the reference's sha512_long shape) against hashlib on a few lanes;
@@ -78,7 +82,8 @@ nothing of JAX or of the JAX package. Phases, each printing a line:
    make_pod_mesh() in this process, with a real NCCL process group at the
    world size of one process, at 262,144 lanes of 64-byte messages, driven
    with the launch counts set to 0 just before it and read just after
-   (per shard: 4 ladder, 1 keygen, 1 sign, 1 SHA-512, 1 one-shot verify);
+   (per shard: 4 ladder, 1 keygen, 1 sign, 1 SHA-512, 3 packings, 1
+   one-shot verify);
    both counters must be 2B and shared_a the bytes of create_shared_key
    run outside the mesh; the warm step timed against the same seven calls
    made without the mesh, and profiled; then two worker processes sharing the card in a
@@ -137,6 +142,8 @@ KERNELS = {
                          "basemult_fold4_limbs_kernel")),
     "sha512_kernel": ("sha512.cu", PALLAS + "sha512_kernel.py:101",
                       ("sha512_kernel",)),
+    "pack_words_kernel": ("sha512.cu", PALLAS + "sha512_kernel.py:235",
+                          ("pack_words_kernel",)),
     "keygen_kernel": ("sign.cu", PALLAS + "sign_kernel.py:183",
                       ("keygen_kernel",)),
     "sign_kernel": ("sign.cu", PALLAS + "sign_kernel.py:214",
@@ -439,9 +446,11 @@ class Counts:
             edwards_kernel, ladder_kernel, sha512_kernel, sign_kernel,
             verify_kernel,
         )
-        self.mods = {"x25519_ladder_kernel": ladder_kernel,
-                     "basemult_kernel": edwards_kernel,
-                     "sha512_kernel": sha512_kernel}
+        # kernels counted in a module attribute: (the module, its name)
+        self.mods = {"x25519_ladder_kernel": (ladder_kernel, "launches"),
+                     "basemult_kernel": (edwards_kernel, "launches"),
+                     "sha512_kernel": (sha512_kernel, "launches"),
+                     "pack_words_kernel": (sha512_kernel, "pack_launches")}
         # kernels counted in a module's launches dict: (the dict, its key)
         self.keyed = {"keygen_kernel": (sign_kernel.launches, "keygen"),
                       "sign_kernel": (sign_kernel.launches, "sign")}
@@ -450,13 +459,13 @@ class Counts:
         self.total = {k: 0 for k in KERNELS}
 
     def zero(self):
-        for m in self.mods.values():
-            m.launches = 0
+        for m, attr in self.mods.values():
+            setattr(m, attr, 0)
         for d, key in self.keyed.values():
             d[key] = 0
 
     def read(self):
-        got = {k: m.launches for k, m in self.mods.items()}
+        got = {k: getattr(m, attr) for k, (m, attr) in self.mods.items()}
         got.update({k: d[key] for k, (d, key) in self.keyed.items()})
         for k, v in got.items():
             self.total[k] += v
@@ -940,7 +949,8 @@ def phase_ed_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
     from curve25519_tpu_torch.ops.cuda import sign_kernel as sgk
 
     errs = {k: 0 for k in ("basemult_kernel", "sha512_kernel",
-                           "keygen_kernel", "sign_kernel")}
+                           "pack_words_kernel", "keygen_kernel",
+                           "sign_kernel")}
 
     def hold(name, got, want, what):
         err = max_abs_err(got, want)
@@ -998,6 +1008,9 @@ def phase_ed_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
     lengths = lengths.to(dev)
     prefix = rand_bytes(rng, (lanes, 32), dev)
     for pre in (None, prefix):
+        hold("pack_words_kernel", sha512.pack_words(msg, lengths, pre)[:2],
+             sha512.pack_words_plain(msg, lengths, pre)[:2],
+             "random lengths, prefix=%s" % (pre is not None))
         got = sha512.sha512(msg, lengths, prefix=pre)
         hold("sha512_kernel", got, sha512.sha512_plain(msg, lengths, prefix=pre),
              "random lengths, prefix=%s" % (pre is not None))
@@ -1143,15 +1156,18 @@ def phase_ed_main(dev, rng, card, counts, bound, batch=MAIN_BATCH):
 
     # sign, plain and blinded
     sig, wall, got = counts.drive(ed25519.sign, priv, msg)
-    check(got["sign_kernel"] == 1, "sign launched %s" % got)
+    check(got["sign_kernel"] == 1 and got["pack_words_kernel"] == 2,
+          "sign launched %s" % got)
     for i in (0, batch - 1):
         check(row_bytes(sig[i]) == oracle_ed25519_sign(
             row_bytes(seeds[i]), row_bytes(pk[i]), row_bytes(msg[i])),
             "main-path signature lane %d disagrees with the Python oracle" % i)
-    lines.append("sign %.3f s (%d)" % (wall, got["sign_kernel"]))
+    lines.append("sign %.3f s (%d, packing %d)"
+                 % (wall, got["sign_kernel"], got["pack_words_kernel"]))
     sig_bl, wall, got = counts.drive(
         lambda: ed25519.sign(priv, msg, blinding=ctx))
-    check(got["sign_kernel"] == 1 and torch.equal(sig_bl, sig),
+    check(got["sign_kernel"] == 1 and got["pack_words_kernel"] == 2
+          and torch.equal(sig_bl, sig),
           "the blinded sign changed a signature or did not launch")
     lines.append("blinded sign %.3f s (%d)" % (wall, got["sign_kernel"]))
 
@@ -1170,7 +1186,8 @@ def phase_ed_main(dev, rng, card, counts, bound, batch=MAIN_BATCH):
 
     # sha512 of the 64-byte messages
     digest, wall, got = counts.drive(sha512.sha512, msg)
-    check(got["sha512_kernel"] == 1, "sha512 launched %s" % got)
+    check(got["sha512_kernel"] == 1 and got["pack_words_kernel"] == 1,
+          "sha512 launched %s" % got)
     for i in (0, batch - 1):
         check(row_bytes(digest[i]) == hashlib.sha512(row_bytes(msg[i]))
               .digest(), "main-path digest lane %d != hashlib" % i)
@@ -1183,8 +1200,9 @@ def phase_ed_main(dev, rng, card, counts, bound, batch=MAIN_BATCH):
                               .astype(np.int32)).to(dev)
     sig_long, wall, got = counts.drive(ed25519.sign, priv[:LONG_LANES], long,
                                        n_long)
-    check(got["sha512_kernel"] == 3 and got["basemult_kernel"] == 1
-          and got["sign_kernel"] == 0, "long sign launched %s" % got)
+    check(got["sha512_kernel"] == 3 and got["pack_words_kernel"] == 3
+          and got["basemult_kernel"] == 1 and got["sign_kernel"] == 0,
+          "long sign launched %s" % got)
     check(torch.equal(sig_long, sgk.sign_plain(
         priv[:LONG_LANES], long, n_long, zr=blinding.default_zr(device=dev))),
         "long-message sign != plain")
@@ -1229,6 +1247,7 @@ def phase_ed_main(dev, rng, card, counts, bound, batch=MAIN_BATCH):
             sign_ops(w3_blocks), batch * (64 + 64 + 4 + 64)),
     }
     rows = time_kernels(cases, batch, card, 8, bound)
+    rows.update(time_pack_words(dev, rng, card, bound))
     time_limb_modes(cut8, cut4, card, bound)
     time_long_sha512(dev, card, bound)
     for label, fn, args in (
@@ -1239,6 +1258,42 @@ def phase_ed_main(dev, rng, card, counts, bound, batch=MAIN_BATCH):
             ("sha512", sha512.sha512, (msg,))):
         print("phase 8 profile [%s]: %s B=%d, 3 calls: %s"
               % (card, label, batch, profile(fn, *args)))
+    return rows
+
+
+def time_pack_words(dev, rng, card, bound):
+    """The packing kernel against its plain version at the main paths'
+    shapes: a verify batch of 165,000 packets of up to 1,167 bytes behind
+    R || pk (64 bytes), and sign's two packings of a TLS batch, 262,144
+    messages of up to 130 bytes behind a 32- and a 64-byte zero hole
+    broadcast from one row. Lengths random in [0, L] with the block edges;
+    the bound counts each byte read or written once (a broadcast row once).
+    Returns the verify shape's row under pack_words_kernel."""
+    from curve25519_tpu_torch.ops import sha512
+
+    def pack(fn):
+        return lambda m, n, p: fn(m, n, p)[:2]
+
+    rows = {}
+    zero = torch.zeros((1, 64), dtype=torch.uint8, device=dev)
+    for name, n, width, prefix, hole in (
+            ("pack_words_kernel", 165_000, 1167, 64, False),
+            ("pack_words_kernel.tls_w2", MAIN_BATCH, 130, 32, True),
+            ("pack_words_kernel.tls_w3", MAIN_BATCH, 130, 64, True)):
+        msg = rand_bytes(rng, (n, width), dev)
+        lengths = rng.integers(0, width + 1, n).astype(np.int32)
+        edges = [e for e in (0, 1, 111, 112, 239, 240, 943, width - 1, width)
+                 if e <= width]
+        lengths[:len(edges)] = edges
+        lengths = torch.from_numpy(lengths).to(dev)
+        pre = (zero[:, :prefix].expand(n, prefix) if hole
+               else rand_bytes(rng, (n, prefix), dev))
+        nw = 32 * sha512.nblocks_static(width + prefix)
+        read = width + 4 + (0 if hole else prefix)
+        rows.update(time_kernels(
+            {name: (pack(sha512.pack_words), pack(sha512.pack_words_plain),
+                    (msg, lengths, pre), ({}, 0, 0),
+                    n * (read + 4 * nw + 4))}, n, card, 8, bound))
     return rows
 
 
@@ -1573,12 +1628,15 @@ def phase_verify_main(dev, rng, card, counts, bound, batch=MAIN_BATCH):
                pk)
     check(bool(ctx["ok"].all()), "a valid key did not decode")
     for label, launched, fn, args, expect in (
-            ("verify_check", {"sha512_kernel": 1, "poly_kernel": 1},
+            ("verify_check", {"sha512_kernel": 1, "pack_words_kernel": 1,
+                              "poly_kernel": 1},
              ed25519.verify_check, (ctx, sig, msg), want),
             ("verify_check shared", {"sha512_kernel": 1,
+                                     "pack_words_kernel": 1,
                                      "poly_shared_kernel": 1},
              ed25519.verify_check, (ctx_one, sig_one, msg), want),
-            ("verify", {"sha512_kernel": 1, "oneshot_kernel": 1},
+            ("verify", {"sha512_kernel": 1, "pack_words_kernel": 1,
+                        "oneshot_kernel": 1},
              ed25519.verify, (sig, pk, msg), want)):
         got = path(label, launched, fn, *args)
         check(torch.equal(got, expect), "%s: %d of %d lanes wrong"
@@ -1661,9 +1719,10 @@ def profile(fn, *args, calls=3):
 # ---------------------------------------------------------------------------
 def ragged_launches(lengths, route):
     """The kernel launches of one ragged call over messages of `lengths`:
-    per SHA-512 block bucket, the fused sign (one launch) or the composed
-    one (3 SHA-512 and 1 base multiply); a verify check is one SHA-512 and
-    one double-scalar multiply."""
+    per SHA-512 block bucket, the fused sign (one launch after two
+    packings) or the composed one (3 SHA-512, each after its packing, and 1
+    base multiply); a verify check is one packing, one SHA-512 and one
+    double-scalar multiply."""
     from curve25519_tpu_torch.ops.cuda import sign_kernel
     from curve25519_tpu_torch.utils import bucketing
     want = {}
@@ -1675,11 +1734,14 @@ def ragged_launches(lengths, route):
         if route == "sign" and sign_kernel.max_fused_msg_len(
                 bucketing.bucket_length(nb)):
             add("sign_kernel")
+            add("pack_words_kernel", 2)
         elif route == "sign":
             add("sha512_kernel", 3)
+            add("pack_words_kernel", 3)
             add("basemult_kernel")
         else:
             add("sha512_kernel")
+            add("pack_words_kernel")
             add(route)
     return want
 
@@ -1999,7 +2061,7 @@ def phase_mesh(dev, rng, card, counts, batch=MAIN_BATCH):
         (ok, ops, shared), wall, got = counts.drive(step, *args)
         per_shard = {"x25519_ladder_kernel": 4, "keygen_kernel": 1,
                      "sign_kernel": 1, "sha512_kernel": 1,
-                     "oneshot_kernel": 1}
+                     "pack_words_kernel": 3, "oneshot_kernel": 1}
         want = {k: per_shard.get(k, 0) * m.size for k in got}
         check(got == want, "the mesh step launched %s, expected %s"
               % (got, want))

@@ -61,8 +61,10 @@ LIBRARIES = {
                   "basemult_fold4_kernel", "basemult_fold4_limbs_kernel"),
                  {"basemult_launch": [_vp, _vp, _vp, _i64, _vp, _i64, _vp,
                                       _int, _int, _i64, _vp]}),
-    "sha512": (("sha512_kernel",),
-               {"sha512_launch": [_vp, _vp, _vp, _i64, _i64, _vp]}),
+    "sha512": (("sha512_kernel", "pack_words_kernel"),
+               {"sha512_launch": [_vp, _vp, _vp, _i64, _i64, _vp],
+                "pack_words_launch": [_vp, _vp, _vp, _i64, _i64, _vp, _i64,
+                                      _i64, _vp, _i64, _i64, _i64, _vp]}),
     "sign": (("keygen_kernel", "sign_kernel"),
              {"keygen_launch": [_vp, _vp, _vp, _i64, _vp, _i64, _vp, _i64,
                                 _vp, _i64, _vp],
@@ -261,6 +263,9 @@ def load_host(so_path):
     lib.fe_wide_op_host.restype = ctypes.c_int
     lib.sha512_host.argtypes = [_int, _vp, _vp, _vp, _i64, _i64]
     lib.sha512_host.restype = None
+    lib.pack_words_host.argtypes = [_vp, _vp, _vp, _i64, _i64, _vp, _i64,
+                                    _i64, _vp, _i64, _i64, _i64]
+    lib.pack_words_host.restype = None
     lib.basemult_host.argtypes = [_int, _vp, _vp, _vp, _i64, _vp, _i64, _vp,
                                   _int, _int, _i64]
     lib.basemult_host.restype = ctypes.c_int

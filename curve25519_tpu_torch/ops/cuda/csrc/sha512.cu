@@ -36,10 +36,14 @@
 // A warp wholly past n leaves at once; the lanes of a partial warp past n
 // take row n - 1 and store nothing, so no row past n is read.
 //
+// The same library packs the messages: pack_words_kernel writes the padded
+// word rows above from the message bytes (see pack_word below).
+//
 // Built by curve25519_tpu_torch/ops/cuda/build.py: with nvcc into a shared
-// library that ctypes loads (sha512_launch), and with g++ for the CPU tests
-// (sha512_host, which runs the lane code on each row, or the warp staging's
-// index arithmetic 32 lanes at a time).
+// library that ctypes loads (sha512_launch, pack_words_launch), and with g++
+// for the CPU tests (sha512_host, which runs the lane code on each row, or
+// the warp staging's index arithmetic 32 lanes at a time; pack_words_host,
+// which runs the packing's warps on the CPU).
 
 #include "sha512.cuh"
 
@@ -119,7 +123,99 @@ FE_HD void sha512_lane(uint8_t* out, const int32_t* row, int32_t nblocks, int64_
   store_digest(out, st);
 }
 
+// ---------------------------------------------------------------------------
+// Message packing: FIPS 180-4 padding in the word domain, the kernel of
+// ops/sha512.pack_words on a card (its plain version is that function's
+// PyTorch code). Replaces no TPU kernel: the TPU package packs with XLA ops
+// (sha512_kernel._pack_words), which the port first copied as about fifteen
+// PyTorch ops, each a pass over the whole batch in int32 or int64.
+//
+// What bounds it: device memory, one read of the message bytes and one write
+// of the words (1,167-byte rows packed to 1,280 bytes). One warp packs a
+// row, lane t words t, t + 32, ... (a row is nb x 32 words), so a warp's
+// stores are 128 contiguous bytes and its byte loads fall in the same one or
+// two lines; rows need no alignment (1,167-byte rows have none). A word
+// inside the live message is four unmasked byte loads; the words at the
+// edges (the prefix, the last live bytes, the marker, the length) take the
+// per-byte path. It runs at 32 registers, so 64 warps fit an SM. Measured
+// on the card (PERF.md): variants that loaded two to eight words before
+// storing one took 39 or 40 registers and ran 5-53% slower, and one that
+// read whole rows without waiting for the length 13-59% slower.
+// ---------------------------------------------------------------------------
+
+// Active blocks of a stream of len bytes (floor division, as the plain
+// version's int32 //).
+FE_HD int32_t pack_nblocks(int32_t len) { return (len + 17 + 127) >> 7; }
+
+// Big-endian word w of a row's padded stream prefix || msg: byte p is
+// prefix[p] below P, msg[p - P] below the stream length len (P included;
+// msg bytes at or past L read as zero), the 0x80 marker at p == len, else
+// zero; the last two words of the last active block hold the 128-bit bit
+// length's low half, len >> 29 and len << 3.
+FE_HD uint32_t pack_word(const uint8_t* msg, int32_t L, const uint8_t* prefix, int32_t P,
+                         int32_t len, int32_t w) {
+  const int32_t last = 32 * pack_nblocks(len);
+  if (w == last - 2) return (uint32_t)(len >> 29);
+  if (w == last - 1) return (uint32_t)len << 3;
+  const int32_t lim = len < P + L ? len : P + L;  // stream bytes read from the inputs
+  const int32_t p0 = 4 * w;
+  if (p0 >= P && p0 + 4 <= lim) {
+    const uint8_t* m = msg + (p0 - P);
+    return ((uint32_t)m[0] << 24) | ((uint32_t)m[1] << 16) | ((uint32_t)m[2] << 8) | m[3];
+  }
+  uint32_t word = 0;
+#pragma unroll
+  for (int k = 0; k < 4; k++) {
+    const int32_t p = p0 + k;
+    const uint32_t b = p < lim ? (p < P ? prefix[p] : msg[p - P]) : (p == len ? 0x80u : 0u);
+    word |= b << (24 - 8 * k);
+  }
+  return word;
+}
+
+// Lane t of the warp that packs one row: words t, t + 32, ... of the row's
+// nw, and lane 0 its block count. length counts the message bytes alone.
+FE_HD void pack_lane(int32_t* words, int32_t* nblocks, const uint8_t* msg, int32_t L,
+                     const uint8_t* prefix, int32_t P, int32_t length, int32_t nw, int t) {
+  const int32_t len = length + P;
+  for (int32_t w = t; w < nw; w += 32) words[w] = (int32_t)pack_word(msg, L, prefix, P, len, w);
+  if (t == 0) *nblocks = pack_nblocks(len);
+}
+
 #ifdef __CUDACC__
+
+constexpr int kPackBlock = 256;  // 8 rows a block
+
+// words: [n, nw] int32; nblocks: [n] int32; msg: rows of L bytes, row i at
+// msg + i * msg_stride (0 broadcasts one row); prefix: rows of P bytes the
+// same way (null when P = 0); length: [n] int32 at length_stride.
+__global__ void __launch_bounds__(kPackBlock)
+pack_words_kernel(int32_t* __restrict__ words, int32_t* __restrict__ nblocks,
+                  const uint8_t* __restrict__ msg, int64_t msg_stride, int32_t L,
+                  const uint8_t* __restrict__ prefix, int64_t prefix_stride, int32_t P,
+                  const int32_t* __restrict__ length, int64_t length_stride, int32_t nw,
+                  int64_t n) {
+  const int64_t row = (int64_t)blockIdx.x * (kPackBlock / 32) + (threadIdx.x >> 5);
+  if (row >= n) return;
+  pack_lane(words + row * nw, nblocks + row, msg + row * msg_stride, L,
+            prefix + row * prefix_stride, P, length[row * length_stride], nw, threadIdx.x & 31);
+}
+
+// Launches on `stream`, allocates nothing, does not synchronize; every row
+// has nw = 32 x blocks words with 4 * nw < 2^31. Returns cudaGetLastError().
+extern "C" int pack_words_launch(void* words, void* nblocks, const void* msg, int64_t msg_stride,
+                                 int64_t L, const void* prefix, int64_t prefix_stride, int64_t P,
+                                 const void* length, int64_t length_stride, int64_t nw, int64_t n,
+                                 void* stream) {
+  if (n > 0) {
+    const unsigned blocks = (unsigned)((n + kPackBlock / 32 - 1) / (kPackBlock / 32));
+    pack_words_kernel<<<blocks, kPackBlock, 0, (cudaStream_t)stream>>>(
+        (int32_t*)words, (int32_t*)nblocks, (const uint8_t*)msg, msg_stride, (int32_t)L,
+        (const uint8_t*)prefix, prefix_stride, (int32_t)P, (const int32_t*)length, length_stride,
+        (int32_t)nw, n);
+  }
+  return (int)cudaGetLastError();
+}
 
 constexpr int kBlock = 128;
 constexpr int kSmemBytes = 4 * 2 * kStageWords * (kBlock / 32);
@@ -265,4 +361,17 @@ extern "C" void sha512_host(int staged, uint8_t* out, const int32_t* words,
     return;
   }
   for (int64_t i = 0; i < n; i++) sha512_lane(out + 64 * i, words + nw * i, nblocks[i], nw);
+}
+
+// Host entry of the packing: the kernel's warps on the CPU, row after row and
+// lane after lane, with the kernel's arguments.
+extern "C" void pack_words_host(int32_t* words, int32_t* nblocks, const uint8_t* msg,
+                                int64_t msg_stride, int64_t L, const uint8_t* prefix,
+                                int64_t prefix_stride, int64_t P, const int32_t* length,
+                                int64_t length_stride, int64_t nw, int64_t n) {
+  for (int64_t row = 0; row < n; row++)
+    for (int t = 0; t < 32; t++)
+      pack_lane(words + row * nw, nblocks + row, msg + row * msg_stride, (int32_t)L,
+                prefix + row * prefix_stride, (int32_t)P, length[row * length_stride],
+                (int32_t)nw, t);
 }

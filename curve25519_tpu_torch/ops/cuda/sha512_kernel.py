@@ -7,6 +7,10 @@ block after block, and ``nblocks`` [n] int32 active blocks per lane; both
 return the [n, 64] uint8 digests. ``sha512_blocks`` launches the kernel for
 CUDA tensors (or raises) and runs ``sha512_blocks_plain`` for CPU tensors.
 ``launches`` counts kernel launches.
+
+``pack_words`` launches the packing kernel of the same library, which
+ops/sha512.pack_words takes for CUDA tensors (its PyTorch code is the plain
+version); ``pack_launches`` counts its launches.
 """
 
 import functools
@@ -16,9 +20,11 @@ import torch
 
 from curve25519_tpu_torch.ops.cuda import build, use_cuda
 
-__all__ = ["sha512_blocks", "sha512_blocks_plain", "launches"]
+__all__ = ["sha512_blocks", "sha512_blocks_plain", "pack_words",
+           "launches", "pack_launches"]
 
 launches = 0
+pack_launches = 0
 
 
 def _primes(n):
@@ -127,3 +133,36 @@ def sha512_blocks(words, nblocks):
                  words.data_ptr(), nblocks.data_ptr(), nw, n, n=n)
     launches += 1
     return out
+
+
+def pack_words(msg, length, prefix, nw):
+    """(words [n, nw] int32, nblocks [n] int32) of the FIPS 180-4 padded
+    streams prefix || msg[:length] by the CUDA kernel, in the layout of
+    ops/sha512.pack_words: msg [n, L] uint8 and prefix None or [n, P] uint8
+    (P % 4 == 0) on one card, rows at any stride (0 broadcasts one row),
+    length [n] int32 live bytes of msg."""
+    global pack_launches
+    n, max_len = msg.shape
+    rows = [msg] if prefix is None else [msg, prefix]
+    if (not msg.is_cuda or 4 * nw >= 1 << 31 or length.shape != (n,)
+            or length.device != msg.device
+            or any(r.dtype != torch.uint8 or r.shape[0] != n
+                   or r.device != msg.device for r in rows)):
+        raise ValueError("msg and prefix must be [n, k] uint8 and length [n] "
+                         "on one card, got %s %s on %s and %s on %s"
+                         % (tuple(msg.shape), msg.dtype, msg.device,
+                            tuple(length.shape), length.device))
+    # the kernel reads a row's bytes in order; rows may have any stride
+    rows = [r.contiguous() if r.shape[1] > 1 and r.stride(1) != 1 else r
+            for r in rows]
+    length = length.to(torch.int32)
+    words = torch.empty((n, nw), dtype=torch.int32, device=msg.device)
+    nblocks = torch.empty((n,), dtype=torch.int32, device=msg.device)
+    pre = (None, 0, 0) if prefix is None else (
+        rows[1].data_ptr(), rows[1].stride(0), rows[1].shape[1])
+    build.launch("sha512", "pack_words_launch", msg.device, words.data_ptr(),
+                 nblocks.data_ptr(), rows[0].data_ptr(), rows[0].stride(0),
+                 max_len, *pre, length.data_ptr(), length.stride(0), nw, n,
+                 n=n)
+    pack_launches += 1
+    return words, nblocks

@@ -145,8 +145,10 @@ def sign_fused(priv, msg, msg_len, zr=None, bl=None, bp=None):
         priv = priv.expand(batch + (64,)).reshape(n, 64).contiguous()
         msg = msg.expand(batch + (L,)).reshape(n, L)
         msg_len = msg_len.expand(batch).reshape(n)
-        # the message hashes with a zero hole for the in-kernel prefixes
-        hole2, hole3 = msg.new_zeros(n, 32), msg.new_zeros(n, 64)
+        # the message hashes with a zero hole for the in-kernel prefixes:
+        # one zero row, broadcast (the packing kernel reads rows by stride)
+        zero = msg.new_zeros(1, 64)
+        hole2, hole3 = zero[:, :32].expand(n, 32), zero.expand(n, 64)
     w2, nb2, _ = sha512.pack_words(msg, msg_len, prefix=hole2)
     w3, nb3, _ = sha512.pack_words(msg, msg_len, prefix=hole3)
     rows = _blinding_rows(zr, bl, bp, batch, n, priv.device)

@@ -5,12 +5,15 @@ curve25519_tpu/ops/pallas/sha512_kernel.py).
 Variable-length messages live in fixed-shape padded byte tensors with a
 per-message length. ``pack_words`` applies the FIPS 180-4 padding in the
 32-bit word domain (the counterpart of the TPU package's ``_pack_words``):
-bytes are packed to big-endian words first, then the 0x80 marker, the zero
-fill and the 128-bit length field are set per word with masks. A
-``prefix`` (P bytes, P % 4 == 0, all live) is prepended in the word domain.
-The compression runs in ops/cuda/sha512_kernel.py: the CUDA kernel for a
-CUDA device, its plain version on the CPU. ``Sha512`` is the streaming
-Init/Update/Final facade for one long host-side stream.
+on a CUDA device one launch of the packing kernel of ops/cuda/sha512_kernel,
+on the CPU the PyTorch ops of ``pack_words_plain``, which packs the bytes to
+big-endian words first, then sets the 0x80 marker, the zero fill and the
+128-bit length field per word with masks. A ``prefix`` (P bytes,
+P % 4 == 0, all live) is prepended in the word domain. The compression runs
+in ops/cuda/sha512_kernel.py: the CUDA kernel for a CUDA device, its plain
+version on the CPU. ``sha512_plain`` takes both plain versions on any
+device. ``Sha512`` is the streaming Init/Update/Final facade for one long
+host-side stream.
 
 Words are int32 tensors that hold the bits of the big-endian uint32 words
 (torch has no uint32 arithmetic on the CPU).
@@ -23,12 +26,13 @@ import torch
 import torch.nn.functional as F
 
 from curve25519_tpu_torch.ops.cuda import (
-    as_bytes, flatten_batch, pick_device, sha512_kernel,
+    as_bytes, flatten_batch, pick_device, sha512_kernel, use_cuda,
 )
 from curve25519_tpu_torch.utils import profiling
 
 __all__ = ["sha512", "sha512_plain", "sha512_bytes", "pack_words",
-           "nblocks_static", "Sha512", "DIGEST_LEN", "BLOCK_LEN"]
+           "pack_words_plain", "nblocks_static", "Sha512", "DIGEST_LEN",
+           "BLOCK_LEN"]
 
 DIGEST_LEN = 64
 BLOCK_LEN = 128
@@ -63,19 +67,44 @@ def _pack4(x):
     return (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) | b[..., 3]
 
 
-@profiling.spanned("sha512.pack_words", n=lambda out: 4 * out[0].numel())
+def _check_prefix(prefix):
+    plen = 0 if prefix is None else prefix.shape[-1]
+    if plen % 4:
+        raise ValueError("prefix length must be a multiple of 4, got %d"
+                         % plen)
+    return plen
+
+
+def _packed_bytes(out):
+    return 4 * out[0].numel()
+
+
+@profiling.spanned("sha512.pack_words", n=_packed_bytes)
 def pack_words(msg, length, prefix=None):
     """FIPS 180-4 padding in the word domain.
 
     msg: [B, L] uint8; length: [B] int32 live bytes of msg; prefix:
     optional [B, P] uint8 (P % 4 == 0, all live) logically prepended.
     Returns (words [B, nb*32] int32 big-endian half-words (hi, lo) in block
-    order, nblocks [B] int32 active blocks, nb)."""
+    order, nblocks [B] int32 active blocks, nb). The packing kernel for
+    CUDA tensors (rows at any stride), pack_words_plain for CPU ones."""
+    if not use_cuda(msg):
+        return _pack_words_plain(msg, length, prefix)
+    nb = nblocks_static(msg.shape[1] + _check_prefix(prefix))
+    words, nblocks = sha512_kernel.pack_words(msg, length, prefix, nb * 32)
+    return words, nblocks, nb
+
+
+@profiling.spanned("sha512.pack_words", n=_packed_bytes)
+def pack_words_plain(msg, length, prefix=None):
+    """The plain version of pack_words in PyTorch ops, on any device; it
+    launches no hand-written kernel and records pack_words' span."""
+    return _pack_words_plain(msg, length, prefix)
+
+
+def _pack_words_plain(msg, length, prefix):
     b, max_len = msg.shape
-    plen = 0 if prefix is None else prefix.shape[-1]
-    if plen % 4:
-        raise ValueError("prefix length must be a multiple of 4, got %d"
-                         % plen)
+    plen = _check_prefix(prefix)
     nb = nblocks_static(max_len + plen)
     nw = nb * 32
     length = length.to(torch.int32) + plen            # whole-stream length
@@ -104,7 +133,7 @@ def pack_words(msg, length, prefix=None):
     return words, nblocks, nb
 
 
-def _sha512(msg, length, prefix, device, blocks):
+def _sha512(msg, length, prefix, device, pack, blocks):
     dev = pick_device(msg, prefix, length, device=device)
     msg = as_bytes(msg, "msg", None, dev)
     batch = msg.shape[:-1]
@@ -124,8 +153,7 @@ def _sha512(msg, length, prefix, device, blocks):
     msg = msg.expand(batch + (max_len,)).reshape(n, max_len)
     if prefix is not None:
         prefix = prefix.expand(batch + prefix.shape[-1:]).reshape(n, -1)
-    words, nblocks, _ = pack_words(msg, length.expand(batch).reshape(n),
-                                   prefix)
+    words, nblocks, _ = pack(msg, length.expand(batch).reshape(n), prefix)
     return unflatten(blocks(words, nblocks))
 
 
@@ -134,13 +162,14 @@ def sha512(msg, length=None, prefix=None, device=None):
     per-message byte lengths `length` [...] int32 (default L everywhere)
     and an optional `prefix` [..., P] uint8 (P % 4 == 0) hashed in front of
     each message. Batch axes broadcast. Device rule of ops/cuda."""
-    return _sha512(msg, length, prefix, device, sha512_kernel.sha512_blocks)
+    return _sha512(msg, length, prefix, device, pack_words,
+                   sha512_kernel.sha512_blocks)
 
 
 def sha512_plain(msg, length=None, prefix=None, device=None):
-    """sha512 through the plain compression on any device (the reference
-    that the kernel is held against)."""
-    return _sha512(msg, length, prefix, device,
+    """sha512 through the plain packing and the plain compression on any
+    device (the reference that the kernels are held against)."""
+    return _sha512(msg, length, prefix, device, pack_words_plain,
                    sha512_kernel.sha512_blocks_plain)
 
 

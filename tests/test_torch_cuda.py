@@ -126,9 +126,62 @@ def test_sha512_kernel_equals_plain_and_hashlib(dev, rng):
     before = sha512_kernel.launches
     got = sha512.sha512(on(dev, msg), on(dev, lengths))
     assert sha512_kernel.launches == before + 1
+    counts = sha512_kernel.launches, sha512_kernel.pack_launches
     assert torch.equal(got, sha512.sha512_plain(on(dev, msg), on(dev, lengths)))
+    # the reference launches neither hand-written kernel
+    assert (sha512_kernel.launches, sha512_kernel.pack_launches) == counts
     assert [bytes(r) for r in got.cpu().numpy()] == [
         hashlib.sha512(m[:n].tobytes()).digest() for m, n in zip(msg, lengths)]
+    _check_pack_kernel(dev, rng)
+
+
+def _check_pack_kernel(dev, rng):
+    """The packing kernel's (words, nblocks) equal the plain version's at a
+    packet batch (165,000 rows of 1,167 bytes, contiguous and 1 byte off a
+    1,168-byte stride, behind a 64-byte prefix and none) and at the TLS
+    shapes (262,144 rows of 130 bytes behind 32- and 64-byte zero holes
+    broadcast from one row); pack_launches counts 1 a pack_words, 2 a fused
+    sign and 1 a verify."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1167)
+
+    def rand(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device=dev,
+                             dtype=torch.uint8)
+
+    def hold(msg, lengths, prefix):
+        before = sha512_kernel.pack_launches
+        got = sha512.pack_words(msg, lengths, prefix)
+        assert sha512_kernel.pack_launches == before + 1
+        want = sha512.pack_words_plain(msg, lengths, prefix)
+        assert got[2] == want[2]
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    n, max_len = 165_000, 1167
+    wide = rand(n, max_len + 1)
+    lengths = torch.randint(0, max_len + 1, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    lengths[:7] = torch.tensor([0, 1, 111, 112, 239, 240, max_len])
+    for msg in (wide[:, :max_len].contiguous(), wide[:, 1:]):
+        hold(msg, lengths, rand(n, 64))
+        hold(msg, lengths, None)
+    del wide, msg
+    n, max_len = 262_144, 130
+    msg = rand(n, max_len)
+    lengths = torch.randint(0, max_len + 1, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    for plen in (32, 64):
+        hold(msg, lengths, msg.new_zeros(1, plen).expand(n, plen))
+
+    pk, priv = ed25519.create_keypair(on(dev, rng.integers(0, 256, (33, 32),
+                                                            dtype=np.uint8)))
+    msg, lengths = msg[:33], lengths[:33]
+    before = sha512_kernel.pack_launches
+    sig = sign_kernel.sign_fused(priv, msg, lengths)
+    assert sha512_kernel.pack_launches == before + 2
+    assert bool(ed25519.verify(sig, pk, msg, lengths).all())
+    assert sha512_kernel.pack_launches == before + 3
+    torch.cuda.synchronize()
 
 
 def test_keygen_and_sign_kernels_equal_plain(dev, rng):

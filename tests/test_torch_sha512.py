@@ -189,7 +189,7 @@ def test_host_kernel_equals_plain_and_hashlib(lib, rng):
     """sha512_host lane by lane (staged = 0) and through the kernel's warp
     staging (staged = 1: 32 lanes at a time, the last warp partial) on the
     padding edges and on 45 lanes of 0-600 bytes, whose block counts (1-5)
-    differ inside each warp."""
+    differ inside each warp; then the packing kernel's host twin."""
     lengths = np.concatenate([EDGE_LENGTHS, [600, 0],
                               rng.integers(0, 601, 32)]).astype(np.int32)
     msg = rng.integers(0, 256, (len(lengths), 600), dtype=np.uint8)
@@ -209,6 +209,61 @@ def test_host_kernel_equals_plain_and_hashlib(lib, rng):
         assert [bytes(r) for r in out] == [
             hashlib.sha512(m[:n].tobytes()).digest()
             for m, n in zip(msg, lengths)]
+    _check_pack_words_host(lib, rng)
+
+
+def _hold_pack(lib, msg, lengths, prefix):
+    """pack_words_host on numpy rows (any row stride, bytes contiguous)
+    equals pack_words on their contiguous copies, word for word."""
+    n, max_len = msg.shape
+    plen = 0 if prefix is None else prefix.shape[1]
+    words, nblocks, nb = sha512.pack_words(
+        torch.from_numpy(np.ascontiguousarray(msg)),
+        torch.from_numpy(np.ascontiguousarray(lengths)),
+        None if prefix is None else torch.from_numpy(
+            np.ascontiguousarray(prefix)))
+    got_words = np.zeros((n, 32 * nb), np.int32)
+    got_nblocks = np.zeros(n, np.int32)
+    assert (max_len < 2 or msg.strides[1] == 1) and lengths.dtype == np.int32
+    lib.pack_words_host(
+        got_words.ctypes.data, got_nblocks.ctypes.data, msg.ctypes.data,
+        msg.strides[0], max_len,
+        None if prefix is None else prefix.ctypes.data,
+        0 if prefix is None else prefix.strides[0], plen,
+        lengths.ctypes.data, lengths.strides[0] // 4, 32 * nb, n)
+    np.testing.assert_array_equal(got_words, words.numpy(),
+                                  err_msg="L=%d P=%d" % (max_len, plen))
+    np.testing.assert_array_equal(got_nblocks, nblocks.numpy())
+
+
+def _check_pack_words_host(lib, rng):
+    """The packing kernel's warps on the CPU (pack_words_host) against the
+    plain pack_words: L of 1, 3, 130, 1,167 and 1,231 (L % 4 != 0) in rows
+    that start 1 byte past a 4-byte boundary, every length 0..L for the
+    small L and the block edges (111/112, 239/240, 943) for the large;
+    prefixes of 0, 32 and 64 bytes, also off alignment; a message row, a
+    prefix row and a length broadcast at stride 0."""
+    for max_len in (1, 3, 130, 1167, 1231):
+        if max_len <= 130:
+            lengths = np.arange(max_len + 1)
+        else:
+            lengths = np.concatenate([[0, 1, 111, 112, 239, 240, 943,
+                                       max_len - 1, max_len],
+                                      rng.integers(0, max_len + 1, 7)])
+        lengths = lengths.astype(np.int32)
+        n = len(lengths)
+        buf = rng.integers(0, 256, (n, (max_len + 4) // 4 * 4),
+                           dtype=np.uint8)
+        msg = buf[:, 1:1 + max_len]
+        assert buf.ctypes.data % 4 == 0 and buf.strides[0] % 4 == 0
+        for plen in (0, 32, 64):
+            prefix = rng.integers(0, 256, (n, plen + 4),
+                                  dtype=np.uint8)[:, 2:2 + plen]
+            _hold_pack(lib, msg, lengths, prefix if plen else None)
+        _hold_pack(lib, np.broadcast_to(msg[1], msg.shape), lengths,
+                   np.broadcast_to(prefix[0], prefix.shape))
+        _hold_pack(lib, msg, np.broadcast_to(lengths[-1], lengths.shape),
+                   None)
 
 
 def test_sha512_bytes_and_the_device_rule(monkeypatch):
