@@ -93,6 +93,7 @@ def sign(priv, msg, msg_len=None, blinding=None, device=None):
 # ---------------------------------------------------------------------------
 # Verify: a per-key context (Verify_Init) and the per-message check
 # ---------------------------------------------------------------------------
+@profiling.spanned("ed25519.verify_init", n=lambda ctx: ctx["ok"].numel())
 def verify_init(pk, device=None):
     """The per-key context {pk, planes, ok} of public keys pk [..., 32]:
     the q_table of -Q as int8 planes [..., 16, 160] (the JAX package's,
@@ -130,11 +131,11 @@ def _verdict(r_bytes, ok, sig, strict):
     """R' == R as encodings, the key decoded, and with strict S < l."""
     result = (r_bytes == sig[..., :32]).all(-1) & ok
     if strict:
-        s = sig[..., 32:]
-        result = result & (sc.to_bytes(sc.from_bytes(s)) == s).all(-1)
+        result = result & sc.below_l(sig[..., 32:])
     return result
 
 
+@profiling.spanned("ed25519.verify_check", n=torch.Tensor.numel)
 def verify_check(ctx, sig, msg, msg_len=None, strict=False):
     """Per-message phase against a context from verify_init: [...] bool
     (reference ed25519_Verify_Check). An unbatched context (one key) serves

@@ -128,10 +128,11 @@ def poly_mult(u, v, planes):
     batch = torch.broadcast_shapes(u.shape[:-1], v.shape[:-1],
                                    () if shared else planes.shape[:-2])
     n, unflatten = flatten_batch(batch)
-    u, v = _rows(u, batch, n, (32,)), _rows(v, batch, n, (64,))
-    planes = _aligned(planes.contiguous() if shared
-                      else _rows(planes, batch, n, QT_SHAPE))
-    out = torch.empty((n, 32), dtype=torch.uint8, device=u.device)
+    with profiling.span("verify_kernel.poly_rows", n):
+        u, v = _rows(u, batch, n, (32,)), _rows(v, batch, n, (64,))
+        planes = _aligned(planes.contiguous() if shared
+                          else _rows(planes, batch, n, QT_SHAPE))
+        out = torch.empty((n, 32), dtype=torch.uint8, device=u.device)
     build.launch("poly", "poly_launch", u.device, out.data_ptr(),
                  u.data_ptr(), v.data_ptr(), planes.data_ptr(), int(shared),
                  edwards_kernel.word_table(8, u.device).data_ptr(), n, n=n)

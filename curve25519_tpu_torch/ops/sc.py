@@ -26,8 +26,9 @@ from curve25519_tpu_torch.ops.fe import _carry_seq as _carry, _mul_cols
 from curve25519_tpu_torch.utils import profiling
 
 __all__ = ["from_int", "mod", "add", "neg", "sub_from_ell", "mul", "muladd",
-           "from_bytes", "from_bytes_raw", "to_bytes", "from_digest", "inv",
-           "mont_mul", "to_mont", "from_mont", "exp_mod_bpo"]
+           "from_bytes", "from_bytes_raw", "to_bytes", "below_l",
+           "from_digest", "inv", "mont_mul", "to_mont", "from_mont",
+           "exp_mod_bpo"]
 
 _ELL_LIMBS = int_to_limbs(ELL)
 _DELTA_LIMBS = int_to_limbs(ELL - 2**252)        # 125-bit delta
@@ -135,6 +136,24 @@ def from_bytes_raw(b):
 def to_bytes(x):
     """Canonical scalar -> 32 little-endian bytes."""
     return fe.norm_to_bytes(x)
+
+
+@functools.lru_cache(maxsize=None)
+def _ell_bytes(device):
+    """l as 32 little-endian bytes, and the byte positions 1..32."""
+    return (torch.tensor(list(ELL.to_bytes(32, "little")), dtype=torch.uint8,
+                         device=device),
+            torch.arange(1, 33, dtype=torch.int32, device=device))
+
+
+def below_l(b):
+    """[..., 32] uint8 little-endian values -> [...] bool: value < l (RFC
+    8032's check of S), read at the most significant byte in which the
+    value differs from l; a value equal to l differs nowhere and reads
+    byte 0, where it is not below."""
+    ell, pos = _ell_bytes(b.device)
+    top = ((b != ell) * pos).argmax(-1, keepdim=True)
+    return (b < ell).gather(-1, top).squeeze(-1)
 
 
 @profiling.spanned("sc.from_digest")

@@ -121,6 +121,23 @@ def test_sc_results_are_canonical_and_right(rng):
         (a * b + c) % ELL for a, b, c in zip(xs, ys, zs)]
     assert got.min() >= 0 and got.max() < 2**13
     _check_selftest_ops_equal_jax_and_integers(rng)
+    _check_below_l(rng)
+
+
+def _check_below_l(rng):
+    """below_l (the strict verdict's S < l) against Python integers and the
+    canonical round trip it replaced, at l's edges and at random."""
+    vals = [0, 1, ELL - 1, ELL, ELL + 1, 2 * ELL - 1, 2**252 - 1, 2**252,
+            2**252 + 1, 2**253, 2**256 - 1, ELL ^ 1, ELL ^ (1 << 128),
+            ELL - (1 << 200)]
+    vals += [int.from_bytes(rng.bytes(32), "little") % (k * ELL)
+             for k in (1, 2, 16) for _ in range(6)]
+    b = torch.tensor([list(v.to_bytes(32, "little")) for v in vals],
+                     dtype=torch.uint8)
+    assert sc.below_l(b).tolist() == [v < ELL for v in vals]
+    assert torch.equal(sc.below_l(b),
+                       (sc.to_bytes(sc.from_bytes(b)) == b).all(-1))
+    assert sc.below_l(b[3]).shape == ()
 
 
 def _check_selftest_ops_equal_jax_and_integers(rng):

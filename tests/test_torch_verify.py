@@ -21,7 +21,12 @@ for the port's, must route every bucket as the port does: verify_init once
 per batch or never with a ctx, the shared q_table for one key. The JAX
 package's own sign_ragged and verify_ragged, compiled, are held against the
 port's in the slow tier. Verify contexts cross between the packages through
-utils/checkpoint both ways. Tolerance: exact bytes, limbs and verdicts.
+utils/checkpoint both ways. The benchmark's EdDSA JWT tokens (48 signing
+inputs of 200-1,000 bytes under one key, made by portbench's
+jwt_eddsa_gateway deployment, S + L among the faults) go through one key's
+context and verify_check(strict=True), held against portbench's
+Python-integer reference and the JAX package's strict verify_check, with
+their program spans recorded. Tolerance: exact bytes, limbs and verdicts.
 """
 
 import functools
@@ -43,8 +48,12 @@ from curve25519_tpu.utils import checkpoint as jcheckpoint
 from curve25519_tpu_torch.models import ed25519, edwards, tables
 from curve25519_tpu_torch.ops import fe, fold, sc
 from curve25519_tpu_torch.ops.cuda import build, edwards_kernel, verify_kernel
-from curve25519_tpu_torch.utils import checkpoint, interop
+from curve25519_tpu_torch.utils import checkpoint, interop, profiling
 from curve25519_tpu_torch.utils.interop import to_numpy
+
+from portbench import harness
+from portbench.deployments import jwt_eddsa_gateway as jwt
+from portbench.reference import curve
 
 from test_edge_encodings import MSG, VECTORS
 
@@ -105,6 +114,8 @@ def batch():
 _jax_check_and_poly = jax.jit(lambda ctx, sig, msg, n, u, v: (
     jed25519.verify_check(ctx, sig, msg, n),
     jed25519._pack(*jed25519._poly_point_multiply(u, v, ctx["planes"]))))
+_jax_strict_check = jax.jit(lambda ctx, sig, msg, n: jed25519.verify_check(
+    ctx, sig, msg, n, strict=True))
 
 
 @pytest.fixture(scope="module")
@@ -230,6 +241,44 @@ def test_verdicts_equal_jax_and_frozen(batch, jax_ref, strict):
         bad = [nm for nm, a, b in zip(names, g.tolist(), expect.tolist())
                if a != b]
         assert not bad, (label, bad)
+    if strict:
+        _check_jwt_tokens_strict()
+
+
+def jwt_tokens():
+    """(pk bytes, sig, msg, msg_len, malleated lanes): 48 EdDSA JWTs of
+    200-1,000-byte signing inputs under one seeded key, made by the
+    benchmark's jwt_eddsa_gateway deployment with a quarter of them invalid,
+    3 of each kind: a bit of R, of S or of the signing input flipped, and S
+    replaced by S + L."""
+    config = dict(harness.load_json(
+        harness.HERE / "configs" / "jwt_eddsa_gateway.json"),
+        invalid_one_in=4)
+    made = jwt.make(config, {"batch": 48, "pool": 1}, 2**32 + 18)
+    lanes = made["lanes"]
+    return (made["fixed"]["pk"], lanes["sig"], lanes["msg"],
+            lanes["msg_len"], made["strata"]["malleated"])
+
+
+def _check_jwt_tokens_strict():
+    """One key's context and verify_check(strict=True) give the verdicts of
+    the Python-integer reference and of the JAX package's strict
+    verify_check (on the same context); the S + L lanes pass without
+    strict and fail with it."""
+    pk, sig, msg, n, malleated = jwt_tokens()
+    want = [curve.verify(s.tobytes(), pk, m[:k].tobytes(), strict=True)
+            for s, m, k in zip(sig, msg, n)]
+    assert sum(want) == 36 and len(malleated) == 3
+    ctx = ed25519.verify_init(t(np.frombuffer(pk, np.uint8)))
+    got = ed25519.verify_check(ctx, t(sig), t(msg), t(n), strict=True)
+    assert got.tolist() == want
+    jgot = _jax_strict_check({k: to_numpy(v) for k, v in ctx.items()}, sig,
+                             msg, n)
+    assert np.asarray(jgot).tolist() == want
+    loose = ed25519.verify_check(ctx, t(sig[malleated]), t(msg[malleated]),
+                                 t(n[malleated]))
+    assert loose.tolist() == [True] * 3
+    assert not got[torch.from_numpy(malleated)].any()
 
 
 def test_verify_ctx_from_jax_gives_jax_verdicts(batch, jax_ref, tmp_path):
@@ -298,7 +347,43 @@ def test_rank1_and_broadcast_calls(batch, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             ed25519.verify(to_numpy(sig[i]), to_numpy(pk[i]), to_numpy(msg[i]))
+    _check_jwt_spans()
     _check_verify_ragged_routes_as_jax(monkeypatch)
+
+
+def _check_jwt_spans():
+    """A recording of one key's verify_init and two verify_check calls over
+    the JWT tokens: the CPU route, then the card route's row preparation
+    with its launch stubbed out (use_cuda forced, build.launch kept aside),
+    which takes the shared q_table. The API spans carry their keys and
+    lanes, and verify_kernel.poly_rows its lanes inside the second check."""
+    pk, sig, msg, n, _ = jwt_tokens()
+    pk, sig, msg, n = t(np.frombuffer(pk, np.uint8)), t(sig), t(msg), t(n)
+    launched = []
+    profiling.start_spans()
+    try:
+        ctx = ed25519.verify_init(pk)
+        ed25519.verify_check(ctx, sig, msg, n, strict=True)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(verify_kernel, "use_cuda", lambda _: True)
+            mp.setattr(verify_kernel, "launches", dict(verify_kernel.launches))
+            mp.setattr(build, "launch", lambda lib, fn, dev, *args, n=None: (
+                launched.append((lib, args[4], n))))
+            ed25519.verify_check(ctx, sig, msg, n, strict=True)
+            counted = dict(verify_kernel.launches)
+    finally:
+        records = profiling.stop_spans()
+    top = [(name, k) for _, _, name, parent, k in records if parent < 0]
+    assert top == [("ed25519.verify_init", 1), ("ed25519.verify_check", 48),
+                   ("ed25519.verify_check", 48)]
+    rows = [i for i, r in enumerate(records)
+            if r[2] == "verify_kernel.poly_rows"]
+    assert len(rows) == 1 and records[rows[0]][4] == 48
+    # a child of the second verify_check
+    assert records[rows[0]][3] == max(i for i, r in enumerate(records)
+                                      if r[2] == "ed25519.verify_check")
+    assert launched == [("poly", 1, 48)]
+    assert counted["poly_shared"] == verify_kernel.launches["poly_shared"] + 1
 
 
 def ragged_case():
