@@ -41,17 +41,19 @@ nothing of JAX or of the JAX package. Phases, each printing a line:
    then each kernel timed against its plain version at the same batch, the
    packing kernel at the verify and TLS shapes (165,000 x 1,167 bytes
    behind a 64-byte prefix; 262,144 x 130 behind 32- and 64-byte zero
-   holes broadcast from one row), one call of each base-multiply limb-mode
-   kernel (on no main path) beside its bound, and SHA-512 of 1,024
-   messages of up to 1 MiB
-   (the reference's sha512_long shape) against hashlib on a few lanes;
-9. the three verify kernels against their plain versions, byte for byte:
+   holes broadcast from one row), the digits kernel at 262,144 and
+   165,000 lanes against its 480 bytes a lane, one call of each
+   base-multiply limb-mode kernel (on no main path) beside its bound, and
+   SHA-512 of 1,024 messages of up to 1 MiB (the reference's sha512_long
+   shape) against hashlib on a few lanes;
+9. the four verify kernels against their plain versions, byte for byte:
    4,096 lanes of valid, random (half of them off the curve) and edge keys,
-   Verify_Init, the double-scalar multiply with a q_table per lane and with
-   one shared q_table, the one-shot kernel, ragged, rank-1 and broadcast
-   calls; then verify, verify_check (per-lane and shared) against the
-   table-free plain oracle on signatures of ragged messages up to 1,200
-   bytes (over 8 SHA-512 blocks), valid and tampered;
+   the fold digits (S at l's edges, read in place from signature rows, and
+   one S broadcast), Verify_Init, the double-scalar multiply with a q_table
+   per lane and with one shared q_table, the one-shot kernel, ragged,
+   rank-1 and broadcast calls; then verify, verify_check (per-lane and
+   shared) against the table-free plain oracle on signatures of ragged
+   messages up to 1,200 bytes (over 8 SHA-512 blocks), valid and tampered;
 10. verify known answers: RFC 8032 TEST 1-3 and their tampered forms, the
    16 edge-encoding vectors of tests/test_edge_encodings.py rebuilt here on
    Python integers (strict and not; their Verify_Init held against the
@@ -83,7 +85,7 @@ nothing of JAX or of the JAX package. Phases, each printing a line:
    world size of one process, at 262,144 lanes of 64-byte messages, driven
    with the launch counts set to 0 just before it and read just after
    (per shard: 4 ladder, 1 keygen, 1 sign, 1 SHA-512, 3 packings, 1
-   one-shot verify);
+   digits, 1 one-shot verify);
    both counters must be 2B and shared_a the bytes of create_shared_key
    run outside the mesh; the warm step timed against the same seven calls
    made without the mesh, and profiled; then two worker processes sharing the card in a
@@ -156,6 +158,9 @@ KERNELS = {
                            ("poly_shared_kernel",)),
     "oneshot_kernel": ("oneshot.cu", PALLAS + "verify_kernel.py:320",
                        ("oneshot_kernel",)),
+    # no TPU kernel: the XLA ops of the JAX verify's fold digits
+    "digits_kernel": ("digits.cu", "curve25519_tpu/models/ed25519.py:306",
+                      ("digits_kernel",)),
 }
 
 P = 2**255 - 19
@@ -1248,6 +1253,7 @@ def phase_ed_main(dev, rng, card, counts, bound, batch=MAIN_BATCH):
     }
     rows = time_kernels(cases, batch, card, 8, bound)
     rows.update(time_pack_words(dev, rng, card, bound))
+    rows.update(time_digits(dev, rng, card, bound))
     time_limb_modes(cut8, cut4, card, bound)
     time_long_sha512(dev, card, bound)
     for label, fn, args in (
@@ -1294,6 +1300,28 @@ def time_pack_words(dev, rng, card, bound):
             {name: (pack(sha512.pack_words), pack(sha512.pack_words_plain),
                     (msg, lengths, pre), ({}, 0, 0),
                     n * (read + 4 * nw + 4))}, n, card, 8, bound))
+    return rows
+
+
+def time_digits(dev, rng, card, bound):
+    """The digits kernel against its plain version (fold.cut8_bytes of S,
+    fold.cut4_limbs(sc.from_digest(md))) at a token batch (262,144 lanes,
+    the kernel table's B) and a packet batch (165,000), S read in place
+    from 64-byte signature rows; the bound is its 480 bytes a lane (96 read,
+    384 written) at the card's memory rate. Returns the two rows."""
+    from curve25519_tpu_torch.ops import fold, sc
+    from curve25519_tpu_torch.ops.cuda import verify_kernel as vk
+
+    def plain(md, s):
+        return fold.cut8_bytes(s), fold.cut4_limbs(sc.from_digest(md))
+
+    rows = {}
+    for name, n in (("digits_kernel", MAIN_BATCH),
+                    ("digits_kernel.packets", 165_000)):
+        md, sig = rand_bytes(rng, (n, 64), dev), rand_bytes(rng, (n, 64), dev)
+        rows.update(time_kernels(
+            {name: (vk.digits, plain, (md, sig[:, 32:]), ({}, 0, 0),
+                    n * (64 + 32 + 4 * (32 + 64)))}, n, card, 8, bound))
     return rows
 
 
@@ -1399,6 +1427,8 @@ def time_kernels(cases, batch, card, phase, bound):
 # keys that decode specially: y = 0, 1, p, p + 1 (small order, non-canonical)
 # with and without the sign bit; y = 2 and 2^255 - 1 (off the curve)
 EDGE_PK = [0, 1, 2, P, P + 1, 2**255 - 1, 1 | 1 << 255, P | 1 << 255]
+# S at l's edges (the digits kernel cuts S's raw bytes, never reduced)
+EDGE_S = [0, ELL - 1, ELL, ELL + 1, 2 * ELL, 2**255, 2**256 - 1]
 
 
 def le_rows(values, dev):
@@ -1422,7 +1452,8 @@ def phase_verify_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
     from curve25519_tpu_torch.ops.cuda import verify_kernel as vk
 
     errs = {k: 0 for k in ("verify_init_kernel", "poly_kernel",
-                           "poly_shared_kernel", "oneshot_kernel")}
+                           "poly_shared_kernel", "oneshot_kernel",
+                           "digits_kernel")}
 
     def hold(name, got, want, what):
         err = max_abs_err(got, want)
@@ -1433,8 +1464,17 @@ def phase_verify_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
     pk, _ = ed25519.create_keypair(rand_bytes(rng, (lanes, 32), dev))
     pk[lanes // 2:] = rand_bytes(rng, (lanes - lanes // 2, 32), dev)
     pk[:len(EDGE_PK)] = le_rows(EDGE_PK, dev)
-    u = fold.cut8_bytes(rand_bytes(rng, (lanes, 32), dev))
-    v = fold.cut4_limbs(sc.from_digest(rand_bytes(rng, (lanes, 64), dev)))
+    s = rand_bytes(rng, (lanes, 64), dev)[:, 32:]  # S inside signature rows
+    s[:len(EDGE_S)] = le_rows(EDGE_S, dev)
+    md = rand_bytes(rng, (lanes, 64), dev)
+    md[:2] = torch.tensor([[0] * 64, [255] * 64], dtype=torch.uint8)
+    u, v = fold.cut8_bytes(s), fold.cut4_limbs(sc.from_digest(md))
+    hold("digits_kernel", vk.digits(md, s), (u, v), "%d lanes" % lanes)
+    for n in RAGGED:
+        hold("digits_kernel", vk.digits(md[:n], s[:n]), (u[:n], v[:n]),
+             "ragged %d" % n)
+    hold("digits_kernel", vk.digits(md[:16], s[5]),
+         (u[5].expand(16, 32), v[:16]), "one S, 16 lanes")
 
     planes, ok = vk.verify_init(pk)
     hold("verify_init_kernel", (planes, ok), vk.verify_init_plain(pk),
@@ -1510,8 +1550,10 @@ def phase_verify_kernels_vs_plain(dev, rng, lanes=CHECK_LANES):
               "lanes wrong" % (label, int((got != expect).sum()), m))
     torch.cuda.synchronize()
     print("phase 9 verify kernels vs plain: %d lanes (%d keys decode, %d "
-          "edge keys), Verify_Init, poly with per-lane and shared q_tables, "
-          "one-shot == the two phases, ragged %s, rank-1, broadcast: "
+          "edge keys), the digits (S at l's edges, in place in signature "
+          "rows, one S broadcast), Verify_Init, poly with per-lane and "
+          "shared q_tables, one-shot == the two phases, ragged %s, rank-1, "
+          "broadcast: "
           "byte-equal (max_abs_err %s); verify, verify_check (per-lane, "
           "shared) == the table-free oracle on %d signatures of "
           "0-1,200-byte messages, valid and tampered"
@@ -1629,14 +1671,15 @@ def phase_verify_main(dev, rng, card, counts, bound, batch=MAIN_BATCH):
     check(bool(ctx["ok"].all()), "a valid key did not decode")
     for label, launched, fn, args, expect in (
             ("verify_check", {"sha512_kernel": 1, "pack_words_kernel": 1,
-                              "poly_kernel": 1},
+                              "digits_kernel": 1, "poly_kernel": 1},
              ed25519.verify_check, (ctx, sig, msg), want),
             ("verify_check shared", {"sha512_kernel": 1,
                                      "pack_words_kernel": 1,
+                                     "digits_kernel": 1,
                                      "poly_shared_kernel": 1},
              ed25519.verify_check, (ctx_one, sig_one, msg), want),
             ("verify", {"sha512_kernel": 1, "pack_words_kernel": 1,
-                        "oneshot_kernel": 1},
+                        "digits_kernel": 1, "oneshot_kernel": 1},
              ed25519.verify, (sig, pk, msg), want)):
         got = path(label, launched, fn, *args)
         check(torch.equal(got, expect), "%s: %d of %d lanes wrong"
@@ -1721,8 +1764,8 @@ def ragged_launches(lengths, route):
     """The kernel launches of one ragged call over messages of `lengths`:
     per SHA-512 block bucket, the fused sign (one launch after two
     packings) or the composed one (3 SHA-512, each after its packing, and 1
-    base multiply); a verify check is one packing, one SHA-512 and one
-    double-scalar multiply."""
+    base multiply); a verify check is one packing, one SHA-512, one digits
+    kernel and one double-scalar multiply."""
     from curve25519_tpu_torch.ops.cuda import sign_kernel
     from curve25519_tpu_torch.utils import bucketing
     want = {}
@@ -1742,6 +1785,7 @@ def ragged_launches(lengths, route):
         else:
             add("sha512_kernel")
             add("pack_words_kernel")
+            add("digits_kernel")
             add(route)
     return want
 
@@ -2061,7 +2105,8 @@ def phase_mesh(dev, rng, card, counts, batch=MAIN_BATCH):
         (ok, ops, shared), wall, got = counts.drive(step, *args)
         per_shard = {"x25519_ladder_kernel": 4, "keygen_kernel": 1,
                      "sign_kernel": 1, "sha512_kernel": 1,
-                     "pack_words_kernel": 3, "oneshot_kernel": 1}
+                     "pack_words_kernel": 3, "digits_kernel": 1,
+                     "oneshot_kernel": 1}
         want = {k: per_shard.get(k, 0) * m.size for k in got}
         check(got == want, "the mesh step launched %s, expected %s"
               % (got, want))

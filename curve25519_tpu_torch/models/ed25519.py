@@ -10,13 +10,15 @@ On a CUDA device, `create_keypair` is one launch of the fused keygen kernel
 and `sign` one launch of the fused sign kernel for messages within
 max_fused_msg_len (943 bytes); longer messages take the composition of the
 SHA-512 and base-multiply kernels. `verify_init` is one launch of the
-Verify_Init kernel, `verify_check` two (SHA-512 for h, then the poly kernel
-with a q_table per lane, or the shared one for an unbatched context) and
-`verify` two (SHA-512, then the one-shot kernel). `sign_ragged` and
-`verify_ragged` take a list of messages of any lengths and make one such
-call per SHA-512 block count (utils/bucketing.py); `verify_ragged` runs
-`verify_init` once for the whole batch, or not at all given a context. On
-the CPU all of them run their plain versions. A blinding context
+Verify_Init kernel, `verify_check` four (the packing and SHA-512 kernels for
+the digest, the digits kernel for the fold digits of S and of h, then the
+poly kernel with a q_table per lane, or the shared one for an unbatched
+context) and `verify` four (packing, SHA-512, digits, then the one-shot
+kernel). `sign_ragged` and `verify_ragged` take a list of messages of any
+lengths and make one such call per SHA-512 block count
+(utils/bucketing.py); `verify_ragged` runs `verify_init` once for the whole
+batch, or not at all given a context. On the CPU all of them run their
+plain versions. A blinding context
 (models/blinding.py) changes no output byte.
 
 Verification semantics (those of the JAX package, frozen by
@@ -33,7 +35,7 @@ from curve25519_tpu_torch.models.blinding import default_zr
 from curve25519_tpu_torch.models.edwards import calculate_x, unpack_point
 from curve25519_tpu_torch.ops import codec, fe, fold, sc, sha512
 from curve25519_tpu_torch.ops.cuda import (
-    as_bytes, pick_device, sign_kernel, verify_kernel,
+    as_bytes, pick_device, sign_kernel, use_cuda, verify_kernel,
 )
 from curve25519_tpu_torch.utils import bucketing, profiling
 
@@ -118,12 +120,15 @@ def _inputs(pk, sig, msg, msg_len):
 
 @profiling.spanned("ed25519.digits")
 def _digits(sig, pk, msg, msg_len, batch):
-    """The fold digits (u of S, v of h = SHA512(R || pk || m) mod l)."""
+    """The fold digits (u of S, v of h = SHA512(R || pk || m) mod l): on a
+    card one launch of the digits kernel, on the CPU its plain version."""
     prefix = torch.cat([sig[..., :32].expand(batch + (32,)),
                         pk.expand(batch + (32,))], -1)
-    h = sc.from_digest(sha512.sha512(msg, msg_len, prefix=prefix))
+    md = sha512.sha512(msg, msg_len, prefix=prefix)
+    if use_cuda(md):
+        return verify_kernel.digits(md, sig[..., 32:])
     return (fold.cut8_bytes(sig[..., 32:]).expand(batch + (32,)),
-            fold.cut4_limbs(h))
+            fold.cut4_limbs(sc.from_digest(md)))
 
 
 @profiling.spanned("ed25519.verdict")

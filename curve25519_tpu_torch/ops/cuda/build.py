@@ -3,7 +3,7 @@ curve25519_tpu/native/bindings.py: a plain C interface, compiled on demand,
 loaded with ctypes).
 
 - ``load_cuda(name)`` compiles one library (``ladder``, ``basemult``,
-  ``sha512``, ``sign``, ``verify``, ``poly`` or ``oneshot``:
+  ``sha512``, ``sign``, ``verify``, ``poly``, ``oneshot`` or ``digits``:
   ``csrc/<name>.cu``) with nvcc for sm_90a into
   ``_build/`` (git-ignored) the first time it is called, and again whenever a
   source is newer than the library. ``build_cuda()`` compiles every library
@@ -78,6 +78,8 @@ LIBRARIES = {
                 {"oneshot_scratch_rows": [_i64, _int],
                  "oneshot_launch": [_vp, _vp, _vp, _i64, _vp, _vp, _vp, _vp,
                                     _i64, _vp]}),
+    "digits": (("digits_kernel",),
+               {"digits_launch": [_vp, _vp, _vp, _i64, _vp, _i64, _i64, _vp]}),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -287,4 +289,6 @@ def load_host(so_path):
     lib.oneshot_host.restype = None
     lib.oneshot_scratch_rows.argtypes = [_i64, _int]
     lib.oneshot_scratch_rows.restype = ctypes.c_int
+    lib.digits_host.argtypes = [_vp, _vp, _vp, _i64, _vp, _i64, _i64]
+    lib.digits_host.restype = None
     return lib

@@ -1,5 +1,5 @@
 """Wrappers of the CUDA Ed25519 verification kernels (csrc/verify.cu,
-csrc/poly.cu, csrc/oneshot.cu), the counterpart of
+csrc/poly.cu, csrc/oneshot.cu, csrc/digits.cu), the counterpart of
 curve25519_tpu/ops/pallas/verify_kernel.py, and their plain versions.
 
 - ``verify_init(pk)``: [..., 32] uint8 public keys -> (planes [..., 16, 160]
@@ -14,12 +14,20 @@ curve25519_tpu/ops/pallas/verify_kernel.py, and their plain versions.
   each looping over lane tiles, with a scratch row for the q_table of each
   of its threads that the launch alone uses. The library sizes the scratch
   (``oneshot_scratch_rows``) and takes its grid from it.
+- ``digits(md, s)``: (u [..., 32], v [..., 64]) int32, the digits that
+  poly_mult and verify_oneshot read: the 8-fold digits of S's raw bytes s
+  [..., 32] (not reduced) and the 4-fold digits of h = md mod l from
+  SHA-512 digests md [..., 64] uint8, in one launch (csrc/digits.cu).
+  ed25519.verify and verify_check launch it once a call on a card.
 
 The multiply reads the folding-8 table as ``edwards_kernel.word_table(8)``.
 
-Each has a ``*_plain`` version on models/edwards and models/tables. CUDA
-tensors launch the kernels (or raise); CPU tensors run the plain versions.
-``launches`` counts kernel launches per kernel.
+The first three have a ``*_plain`` version on models/edwards and
+models/tables; CUDA tensors launch the kernels (or raise), CPU tensors run
+the plain versions. ``digits`` takes CUDA tensors only: its plain version
+is fold.cut8_bytes(s) and fold.cut4_limbs(sc.from_digest(md)), which
+models/ed25519 calls for CPU tensors. ``launches`` counts kernel launches
+per kernel.
 """
 
 import torch
@@ -33,11 +41,12 @@ from curve25519_tpu_torch.ops.cuda import (
 from curve25519_tpu_torch.utils import profiling
 
 __all__ = ["verify_init", "verify_init_plain", "poly_mult", "poly_mult_plain",
-           "verify_oneshot", "verify_oneshot_plain", "launches"]
+           "verify_oneshot", "verify_oneshot_plain", "digits", "launches"]
 
 QT_SHAPE = (16, 8 * NLIMBS)
 
-launches = {"verify_init": 0, "poly": 0, "poly_shared": 0, "oneshot": 0}
+launches = {"verify_init": 0, "poly": 0, "poly_shared": 0, "oneshot": 0,
+            "digits": 0}
 
 
 def verify_init_plain(pk):
@@ -172,3 +181,31 @@ def verify_oneshot(pk, u, v):
                  edwards_kernel.word_table(8, pk.device).data_ptr(), n, n=n)
     launches["oneshot"] += 1
     return unflatten(out), unflatten(ok)
+
+
+def digits(md, s):
+    """(u [..., 32], v [..., 64]) int32 fold digits of S's bytes s [..., 32]
+    and of h = md mod l from digests md [..., 64] uint8, by one launch of
+    digits_kernel (see the module docstring): s broadcasts to md's batch,
+    and its rows are read in place at their stride. Both on one card, each
+    row's bytes contiguous; anything else raises."""
+    _check(md, "md", torch.uint8, (64,))
+    _check(s, "s", torch.uint8, (32,))
+    _same_device(md, s)
+    if not md.is_cuda:
+        raise ValueError("digits runs on a card: md and s are on %s"
+                         % md.device)
+    batch = md.shape[:-1]
+    n, unflatten = flatten_batch(batch)
+    md, s = md.reshape(n, 64), s.expand(batch + (32,)).reshape(n, 32)
+    if md.stride(1) != 1 or s.stride(1) != 1:
+        raise ValueError("digits reads each row's bytes in order: md and s "
+                         "have byte strides %d and %d"
+                         % (md.stride(1), s.stride(1)))
+    u = torch.empty((n, 32), dtype=torch.int32, device=md.device)
+    v = torch.empty((n, 64), dtype=torch.int32, device=md.device)
+    build.launch("digits", "digits_launch", md.device, u.data_ptr(),
+                 v.data_ptr(), md.data_ptr(), md.stride(0), s.data_ptr(),
+                 s.stride(0), n, n=n)
+    launches["digits"] += 1
+    return unflatten(u), unflatten(v)

@@ -18,12 +18,13 @@ import torch
 from curve25519_tpu import refmodel
 from curve25519_tpu.config import P
 
-from curve25519_tpu_torch.config import int_to_limbs
+from curve25519_tpu_torch.config import ELL, int_to_limbs
 from curve25519_tpu_torch.models import blinding, ed25519, montgomery, x25519
 from curve25519_tpu_torch.ops import fold, sc, sha512
 from curve25519_tpu_torch.ops.cuda import (
     edwards_kernel, ladder_kernel, sha512_kernel, sign_kernel, verify_kernel,
 )
+from curve25519_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -217,10 +218,12 @@ def test_verify_kernels_equal_plain(dev, rng):
                                                          dtype=np.uint8)))
     pk[n // 2:] = on(dev, rng.integers(0, 256, (n - n // 2, 32),
                                        dtype=np.uint8))   # half off the curve
-    u = fold.cut8_bytes(on(dev, rng.integers(0, 256, (n, 32), dtype=np.uint8)))
-    v = fold.cut4_limbs(sc.from_digest(on(dev, rng.integers(
-        0, 256, (n, 64), dtype=np.uint8))))
+    s = on(dev, rng.integers(0, 256, (n, 32), dtype=np.uint8))
+    md = on(dev, rng.integers(0, 256, (n, 64), dtype=np.uint8))
     before = dict(verify_kernel.launches)
+    u, v = verify_kernel.digits(md, s)
+    assert torch.equal(u, fold.cut8_bytes(s))
+    assert torch.equal(v, fold.cut4_limbs(sc.from_digest(md)))
     planes, ok = verify_kernel.verify_init(pk)
     want_planes, want_ok = verify_kernel.verify_init_plain(pk)
     assert torch.equal(planes, want_planes) and torch.equal(ok, want_ok)
@@ -235,6 +238,74 @@ def test_verify_kernels_equal_plain(dev, rng):
     torch.cuda.synchronize()
     assert torch.equal(r1, r) and torch.equal(ok1, ok)
     assert verify_kernel.launches == {k: before[k] + 1 for k in before}
+    _check_digits_kernel(dev)
+
+
+def _check_digits_kernel(dev):
+    """The digits kernel equals the plain calls it replaces
+    (fold.cut8_bytes of S, fold.cut4_limbs(sc.from_digest(md))) at a packet
+    batch (165,000) and a token batch (262,144), with S at l's edges and
+    S + l lanes, S read in place from signature rows, broadcast from one
+    row and read at an unaligned stride; verify and verify_check launch it
+    once a call and record no span of the plain calls; verify_tablefree
+    launches no hand-written kernel."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+
+    def rand(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device=dev,
+                             dtype=torch.uint8)
+
+    edges = [0, ELL - 1, ELL, ELL + 1, ELL + 2**200, 2**256 - 1, 2**255]
+    for n in (165_000, 262_144):
+        md, sig = rand(n, 64), rand(n, 64)
+        md[:2] = torch.tensor([[0] * 64, [255] * 64], dtype=torch.uint8)
+        s_plus_l = [int.from_bytes(bytes(r), "little") % ELL + ELL
+                    for r in sig[len(edges):len(edges) + 64, 32:].tolist()]
+        sig[:len(edges) + 64, 32:] = torch.tensor(
+            [list(x.to_bytes(32, "little")) for x in edges + s_plus_l],
+            dtype=torch.uint8)
+        want_u = fold.cut8_bytes(sig[:, 32:])
+        want_v = fold.cut4_limbs(sc.from_digest(md))
+        before = verify_kernel.launches["digits"]
+        u, v = verify_kernel.digits(md, sig[:, 32:])
+        assert verify_kernel.launches["digits"] == before + 1
+        assert torch.equal(u, want_u) and torch.equal(v, want_v), n
+    one_u, one_v = verify_kernel.digits(md[:300], sig[9, 32:])
+    assert torch.equal(one_u, want_u[9].expand(300, 32))
+    assert torch.equal(one_v, want_v[:300])
+    odd = rand(300, 97)                          # rows 97 bytes apart, at 1
+    odd[:, 1:33] = sig[:300, 32:]
+    odd[:, 33:] = md[:300]
+    odd_u, odd_v = verify_kernel.digits(odd[:, 33:], odd[:, 1:33])
+    assert torch.equal(odd_u, want_u[:300]) and torch.equal(odd_v,
+                                                            want_v[:300])
+    torch.cuda.synchronize()
+
+    pk, priv = ed25519.create_keypair(rand(40, 32))
+    msg = rand(40, 300)
+    lengths = torch.randint(0, 301, (40,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    sig = ed25519.sign(priv, msg, lengths)
+    ctx, one = ed25519.verify_init(pk), ed25519.verify_init(pk[0])
+    one_sig = ed25519.sign(priv[0], msg, lengths)
+    plain = ("sc.from_digest", "fold.cut8_bytes", "fold.cut4_limbs")
+    for fn, args in ((ed25519.verify, (sig, pk, msg, lengths)),
+                     (ed25519.verify_check, (ctx, sig, msg, lengths)),
+                     (ed25519.verify_check, (one, one_sig, msg, lengths))):
+        before = verify_kernel.launches["digits"]
+        profiling.start_spans()
+        try:
+            got = fn(*args)
+        finally:
+            records = profiling.stop_spans()
+        assert bool(got.all())
+        assert verify_kernel.launches["digits"] == before + 1
+        names = {r[2] for r in records}
+        assert "ed25519.digits" in names and not names & set(plain), names
+    before = dict(verify_kernel.launches)
+    assert bool(ed25519.verify_tablefree(sig, pk, msg, lengths).all())
+    assert verify_kernel.launches == before
 
 
 def test_partial_warps_and_tiles(dev, rng):

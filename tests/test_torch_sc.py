@@ -1,6 +1,7 @@
 """The port's mod-l scalar arithmetic and fold digits against the JAX
 package's, limb for limb, and the g++ build of the kernels' mod-l code
-(csrc/sc25519.cuh) against the port's plain ops/sc.py.
+(csrc/sc25519.cuh) and of verify's digits kernel (csrc/digits.cu) against
+the port's plain ops/sc.py and ops/fold.py.
 
 Both packages use 20 limbs of 13 bits and the same integer steps, so limbs
 must be equal, not only equal mod l. The selftest ops (inv, the Montgomery
@@ -219,6 +220,75 @@ def test_host_sc_ops_equal_plain(lib, rng):
     for name, args, want in cases:
         np.testing.assert_array_equal(host_op(lib, name, *args),
                                       to_numpy(want), err_msg=name)
+    _check_digits_host(lib, rng)
+
+
+def int_cut(x, nfolds):
+    """The fold digits of the integer x < 2^256 (ops/fold's conventions),
+    bit by bit: 8-fold digit c has bit j = bit 32j + 31 - c; 4-fold digit c
+    has bit m = bit 32(2m + 1) + 31 - c, digit 32 + c bit m = bit 64m + 31 -
+    c."""
+    def bit(i):
+        return (x >> i) & 1
+    if nfolds == 8:
+        return [sum(bit(32 * j + 31 - c) << j for j in range(8))
+                for c in range(32)]
+    return [sum(bit(32 * (2 * m + odd) + 31 - c) << m for m in range(4))
+            for odd in (1, 0) for c in range(32)]
+
+
+def host_digits(lib, md, s, s_stride=32):
+    """(u, v) of digits_host over the rows of md [n, 64] and of s (a uint8
+    array whose rows of 32 bytes start s_stride bytes apart)."""
+    n = len(md)
+    u, v = np.zeros((n, 32), np.int32), np.zeros((n, 64), np.int32)
+    lib.digits_host(u.ctypes.data, v.ctypes.data, md.ctypes.data, 64,
+                    s.ctypes.data, s_stride, n)
+    return u, v
+
+
+def _check_digits_host(lib, rng):
+    """digits_host (csrc/digits.cu, verify's fold digits) against the plain
+    calls it replaces on a card, fold.cut4_limbs(sc.from_digest(md)) and
+    fold.cut8_bytes(s), and both against Python integers: digests at 0,
+    2^512 - 1, k*l and k*l +- 1, and around 2^256; S at 0, l - 1, l, l + s,
+    2^256 - 1 and the top bit alone (S is cut as its raw bytes, never
+    reduced); random rows, also over three of the kernel's 128-lane tiles;
+    S read at a stride of 64 from signature rows and broadcast at a stride
+    of 0."""
+    mds = [0, 2**512 - 1, 2**256 - 1, 2**256, 2**256 + 1, 2**252, ELL]
+    for k in (1, 2, 3, 16, 2**64 + 7, 2**200 + 1, (2**512 - 1) // ELL):
+        mds += [k * ELL - 1, k * ELL, k * ELL + 1]
+    mds += [int.from_bytes(rng.bytes(64), "little") for _ in range(12)]
+    valid = int.from_bytes(rng.bytes(32), "little") % ELL
+    ss = [0, ELL - 1, ELL, ELL + valid, 2**256 - 1, 2**255, valid]
+    ss += [int.from_bytes(rng.bytes(32), "little")
+           for _ in range(len(mds) - len(ss))]
+    md = np.array([list(x.to_bytes(64, "little")) for x in mds], np.uint8)
+    s = np.array([list(x.to_bytes(32, "little")) for x in ss], np.uint8)
+    want_u = fold.cut8_bytes(torch.from_numpy(s)).numpy()
+    want_v = fold.cut4_limbs(sc.from_digest(torch.from_numpy(md))).numpy()
+    assert want_u.tolist() == [int_cut(x, 8) for x in ss]
+    assert want_v.tolist() == [int_cut(x % ELL, 4) for x in mds]
+    u, v = host_digits(lib, md, s)
+    np.testing.assert_array_equal(u, want_u)
+    np.testing.assert_array_equal(v, want_v)
+    # S in place in 64-byte signature rows, and one S for every row
+    sig = np.concatenate([rng.integers(0, 256, s.shape, dtype=np.uint8), s],
+                         1)
+    u, v = host_digits(lib, md, sig[:, 32:], s_stride=64)
+    np.testing.assert_array_equal(u, want_u)
+    np.testing.assert_array_equal(v, want_v)
+    u, v = host_digits(lib, md, s[3:4].copy(), s_stride=0)
+    np.testing.assert_array_equal(u, np.broadcast_to(want_u[3], u.shape))
+    np.testing.assert_array_equal(v, want_v)
+    # three blocks of the kernel's tiles, the last one partial
+    md = rng.integers(0, 256, (300, 64), dtype=np.uint8)
+    s = rng.integers(0, 256, (300, 32), dtype=np.uint8)
+    u, v = host_digits(lib, md, s)
+    np.testing.assert_array_equal(u, fold.cut8_bytes(torch.from_numpy(s)))
+    np.testing.assert_array_equal(v, fold.cut4_limbs(sc.from_digest(
+        torch.from_numpy(md))))
 
 
 def test_scalars_follow_the_device_of_their_input():
