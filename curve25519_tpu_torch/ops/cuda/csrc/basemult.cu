@@ -34,10 +34,10 @@
 //   store nothing. Shared memory per block: the 24 KB table and a staging
 //   row per warp (3.5 KB), dynamic;
 // - fold 4's 64 reads of 16 entries by a masked scan (1.5 KB in shared
-//   memory, broadcast 16-byte reads, FOLD4_SCAN_UNROLL entries a loop
-//   trip): 384 LOP3 a read, on the ALU pipe, which the field work leaves
-//   about two thirds idle (tools/ladder_probe.py). 256 threads a block, at
-//   most 128 registers a thread: 16 warps per SM.
+//   memory, broadcast 16-byte reads, two entries a loop trip): 384 LOP3 a
+//   read, on the ALU pipe, which the field work leaves about two thirds
+//   idle (PERF.md section 6). 256 threads a block, at most 128 registers a
+//   thread: 16 warps per SM.
 // zr and BP arrive as 13-bit limbs and are converted once per lane
 // (weak_limbs.cuh), BP a coordinate at a time just before the multiply that
 // takes it.
@@ -111,16 +111,10 @@ FE_HD int64_t out_stride(int mode) { return mode >= MODE_PK ? 32 : 4 * 2 * NLIMB
 
 #ifdef __CUDACC__
 
-// The fold-8 byte modes' block size and minimum of blocks per SM
-// (tools/ladder_probe.py times other shapes against them; PERF.md lists
-// each shape tried).
-#ifndef FOLD8_BLOCK
-#define FOLD8_BLOCK 128
-#endif
-#ifndef FOLD8_MIN_BLOCKS
-#define FOLD8_MIN_BLOCKS 3
-#endif
-constexpr int kFold8Block = FOLD8_BLOCK;
+// The fold-8 byte modes' block size and minimum of blocks per SM (PERF.md
+// section 6 lists each shape tried).
+constexpr int kFold8Block = 128;
+constexpr int kFold8MinBlocks = 3;
 constexpr int kBlock = 128;  // the limb modes'
 
 // Dynamic shared memory of the fold-8 kernels: the table in B order, then
@@ -129,7 +123,7 @@ constexpr int fold8_smem_bytes(int block) {
   return 4 * (gather_mma::kTableWords + (block / 32) * gather_mma::kStageWords);
 }
 
-__global__ void __launch_bounds__(kFold8Block, FOLD8_MIN_BLOCKS)
+__global__ void __launch_bounds__(kFold8Block, kFold8MinBlocks)
 basemult_fold8_kernel(char* out, const int32_t* __restrict__ cut, const int32_t* __restrict__ zr,
                       int64_t zr_stride, const int32_t* __restrict__ bp, int64_t bp_stride,
                       const uint32_t* __restrict__ table, int mode, int64_t n) {
@@ -161,8 +155,8 @@ basemult_fold8_limbs_kernel(char* out, const int32_t* __restrict__ cut,
 }
 
 // The byte modes on the wide lane, 256 threads a block. At most 128
-// registers a thread: two blocks, 16 warps, per SM (tools/ladder_probe.py
-// times other shapes against it).
+// registers a thread: two blocks, 16 warps, per SM (PERF.md section 6
+// lists the other shapes tried).
 constexpr int kFold4Block = 256;
 
 __global__ void __launch_bounds__(kFold4Block, 2)

@@ -41,15 +41,10 @@ using fe_wide::to_bytes;
 
 constexpr int kWords = 24;  // an entry: ypx, ymx, t2d, 8 words each
 
-// Entries per trip of the scan's loop (tools/ladder_probe.py times 1, 2 and
-// 4). A fully unrolled scan reads the same 384 table words in every step,
-// so nvcc hoists the reads out of the step loop and keeps them live: 972 B
-// spilled even at 255 registers.
-#ifndef FOLD4_SCAN_UNROLL
-#define FOLD4_SCAN_UNROLL 2
-#endif
-#define FOLD4_STR(x) #x
-#define FOLD4_UNROLL(n) _Pragma(FOLD4_STR(unroll n))
+// The scan's loop takes two entries a trip (PERF.md section 6 lists 1, 2
+// and 4 as tried). A fully unrolled scan reads the same 384 table words in
+// every step, so nvcc hoists the reads out of the step loop and keeps them
+// live: 972 B spilled even at 255 registers.
 
 // Constant-time fetch of entry idx of a word table of NENT entries (16-byte
 // aligned; 16-byte reads on the device): every entry is read, in the same
@@ -63,7 +58,7 @@ struct ScanWords {
     for (int c = 0; c < 3; c++)
 #pragma unroll
       for (int k = 0; k < 8; k++) acc[c][k] = 0;
-    FOLD4_UNROLL(FOLD4_SCAN_UNROLL)
+#pragma unroll 2
     for (int e = 0; e < NENT; e++) {
       const uint32_t m = 0u - (uint32_t)(idx == e);
 #pragma unroll

@@ -20,7 +20,7 @@
 // has to mind is the instruction cache: the two phases are about 23,000
 // SASS instructions (13,700 and 9,400), and where warps of one SM ran
 // different phases the kernel took 16.2 ms against 12.8 for the two
-// kernels back to back (tools/ladder_probe.py, PERF.md). So one block of
+// kernels back to back (PERF.md section 6). So one block of
 // 512 threads per SM, persistent, loops over 512-lane tiles, and all its
 // warps meet at a barrier after Verify_Init: an SM runs one phase's code at
 // a time but for the short turn from a tile's multiply to the next tile's

@@ -25,7 +25,7 @@
 // appears once. At most 168 registers a thread under
 // __launch_bounds__(128, 3): three blocks, 12 warps, per SM. The lane fits
 // 128 registers with no spill too, but at 16 warps per SM it ran 5% slower
-// (tools/ladder_probe.py, PERF.md).
+// (PERF.md section 6).
 // The base table of s, edwards_kernel.word_table(8) (24 KB), is copied once
 // per block into shared memory and read by index; poly_shared_kernel copies
 // its one q_table there too.

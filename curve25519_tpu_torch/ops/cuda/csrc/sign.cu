@@ -179,21 +179,16 @@ FE_HD void sign_lane(uint8_t* sig, const uint8_t* priv, const int32_t* w2, int32
 #ifdef __CUDACC__
 
 // Both kernels' block size and minimum of blocks per SM: at most 168
-// registers a thread, 12 warps per SM (tools/ladder_probe.py times other
-// shapes against them; PERF.md lists each shape tried).
-#ifndef SIGN_BLOCK
-#define SIGN_BLOCK 128
-#endif
-#ifndef SIGN_MIN_BLOCKS
-#define SIGN_MIN_BLOCKS 3
-#endif
-constexpr int kBlock = SIGN_BLOCK;
+// registers a thread, 12 warps per SM (PERF.md section 6 lists each shape
+// tried).
+constexpr int kBlock = 128;
+constexpr int kMinBlocks = 3;
 // Dynamic shared memory of keygen_kernel and sign_kernel: the table in B
 // order, then one staging row per warp.
 constexpr int kSmemBytes =
     4 * (gather_mma::kTableWords + (kBlock / 32) * gather_mma::kStageWords);
 
-__global__ void __launch_bounds__(kBlock, SIGN_MIN_BLOCKS)
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
 keygen_kernel(uint8_t* __restrict__ pk, const uint8_t* __restrict__ sk,
               const int32_t* __restrict__ zr, int64_t zr_stride, const int32_t* __restrict__ bl,
               int64_t bl_stride, const int32_t* __restrict__ bp, int64_t bp_stride,
@@ -208,7 +203,7 @@ keygen_kernel(uint8_t* __restrict__ pk, const uint8_t* __restrict__ sk,
               bp ? bp + bp_stride * row : nullptr, gather);
 }
 
-__global__ void __launch_bounds__(kBlock, SIGN_MIN_BLOCKS)
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
 sign_kernel(uint8_t* __restrict__ sig, const uint8_t* __restrict__ priv,
             const int32_t* __restrict__ w2, int64_t nw2, const int32_t* __restrict__ nb2,
             const int32_t* __restrict__ w3, int64_t nw3, const int32_t* __restrict__ nb3,

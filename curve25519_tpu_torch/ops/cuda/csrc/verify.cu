@@ -40,7 +40,7 @@
 constexpr int kBlock = 128;
 
 // At most 128 registers a thread: four blocks, 16 warps, per SM. The lane
-// fits them with no spill (ptxas; tools/ladder_probe.py times this build
+// fits them with no spill (ptxas; PERF.md section 6 times this build
 // against 130 registers with no minimum, 12 warps, and others).
 __global__ void __launch_bounds__(kBlock, 4)
 verify_init_kernel(uint32_t* __restrict__ planes, uint8_t* __restrict__ ok,
