@@ -76,6 +76,7 @@ LIBRARIES = {
              {"poly_launch": [_vp, _vp, _vp, _vp, _int, _vp, _i64, _vp]}),
     "oneshot": (("oneshot_kernel",),
                 {"oneshot_scratch_rows": [_i64, _int],
+                 "oneshot_busiest_warps": [_i64, _i64],
                  "oneshot_launch": [_vp, _vp, _vp, _i64, _vp, _vp, _vp, _vp,
                                     _i64, _vp]}),
     "digits": (("digits_kernel",),
@@ -289,6 +290,10 @@ def load_host(so_path):
     lib.oneshot_host.restype = None
     lib.oneshot_scratch_rows.argtypes = [_i64, _int]
     lib.oneshot_scratch_rows.restype = ctypes.c_int
+    lib.oneshot_busiest_warps.argtypes = [_i64, _i64]
+    lib.oneshot_busiest_warps.restype = ctypes.c_int
+    lib.oneshot_split_host.argtypes = [_vp, _i64, _i64]
+    lib.oneshot_split_host.restype = _i64
     lib.digits_host.argtypes = [_vp, _vp, _vp, _i64, _vp, _i64, _i64]
     lib.digits_host.restype = None
     return lib

@@ -21,22 +21,34 @@
 // SASS instructions (13,700 and 9,400), and where warps of one SM ran
 // different phases the kernel took 16.2 ms against 12.8 for the two
 // kernels back to back (PERF.md section 6). So one block of
-// 512 threads per SM, persistent, loops over 512-lane tiles, and all its
-// warps meet at a barrier after Verify_Init: an SM runs one phase's code at
-// a time but for the short turn from a tile's multiply to the next tile's
-// Verify_Init (a second barrier there cost 1%). Lanes past n skip both
-// phases but still reach the barrier. The scratch holds the resident lanes
-// only: one row per thread of the grid. The fold-8 word table is copied
-// once per block into shared memory and read by index.
+// 512 threads per SM, persistent, runs the same number of rounds as every
+// other block, and all its warps meet at a barrier after each round's
+// Verify_Init: an SM runs one phase's code at a time but for the short turn
+// from a round's multiply to the next round's Verify_Init (a second barrier
+// there cost 1%). The scratch holds the resident lanes only: one row per
+// thread of the grid. The fold-8 word table is copied once per block into
+// shared memory and read by index.
+//
+// The lane split (split_lane) balances the SMs and their schedulers: the n
+// lanes are cut into ceil(n / 32) groups of 32 consecutive lanes, each block
+// takes floor or ceil of groups / grid consecutive groups, and spreads them
+// over the rounds in quads of 4 warps, one on each scheduler. A split in
+// 512-lane tiles would leave the SMs of a last, partial wave idle: at
+// 165,000 lanes on 132 SMs the busiest SM ran 3 rounds of 16 warps (4 a
+// scheduler) against a mean of 39.1 warps; balanced it runs 16, 12 and 12.
+// A thread with no group in a round, or whose lane is past n, skips both
+// phases but still reaches the barrier.
 //
 // The library owns the launch shape: oneshot_scratch_rows gives the scratch
 // rows (grid x block) for n lanes, and oneshot_launch takes the grid from the
-// rows it is given, so the kernel never indexes past the scratch.
+// rows it is given, so the kernel never indexes past the scratch;
+// oneshot_busiest_warps gives the warps of the busiest block.
 //
 // Built by curve25519_tpu_torch/ops/cuda/build.py: with nvcc into a shared
-// library that ctypes loads (oneshot_scratch_rows, oneshot_launch), and with
-// g++ for the CPU tests (oneshot_host), which run the same per-lane code and
-// scratch layout on the host.
+// library that ctypes loads (oneshot_scratch_rows, oneshot_busiest_warps,
+// oneshot_launch), and with g++ for the CPU tests (oneshot_host, which runs
+// the same per-lane code and scratch layout on the host, and
+// oneshot_split_host, the lanes of every round, block and thread).
 
 #include "verify_lane.cuh"
 
@@ -45,12 +57,49 @@
 #endif
 
 constexpr int kOneshotBlock = 512;
+constexpr int kOneshotWarps = kOneshotBlock / 32;
 
 // Scratch rows of the launch for n lanes on a card of `sms` SMs: one block
 // per SM at most, each of kOneshotBlock threads (a row each).
 extern "C" int oneshot_scratch_rows(int64_t n, int sms) {
   const int64_t blocks = (n + kOneshotBlock - 1) / kOneshotBlock;
   return (int)(blocks < sms ? blocks : sms) * kOneshotBlock;
+}
+
+// Warps of the busiest block of `grid` for n lanes: ceil(ceil(n / 32) / grid).
+FE_HD int64_t split_busiest(int64_t n, int64_t grid) {
+  return ((n + 31) / 32 + grid - 1) / grid;
+}
+
+// Rounds of every block: the busiest block's warps, kOneshotWarps a round.
+// Equal to ceil(ceil(n / 512) / grid), the tiles of a block in 512-lane tiles.
+FE_HD int64_t split_rounds(int64_t n, int64_t grid) {
+  return (split_busiest(n, grid) + kOneshotWarps - 1) / kOneshotWarps;
+}
+
+// The lane of `thread` of `block` in `round` for n lanes over `grid` blocks,
+// or -1 for none. Block b takes the groups of 32 lanes [first, first + count)
+// with count = groups / grid, one more for the first groups % grid blocks,
+// and hands them to its rounds in quads of 4 groups, in order, a warp a
+// group: quads / rounds quads a round, one more for the first
+// quads % rounds rounds. Warp w of a block runs on the SM's scheduler w % 4,
+// and a round lasts as long as its busiest scheduler's warps, so a round of
+// whole quads keeps the 4 schedulers level.
+FE_HD int64_t split_lane(int64_t n, int64_t grid, int64_t block, int64_t round,
+                         int thread) {
+  const int64_t groups = (n + 31) / 32, rounds = split_rounds(n, grid);
+  const int64_t q = groups / grid, r = groups % grid;
+  const int64_t count = q + (block < r), first = block * q + (block < r ? block : r);
+  const int64_t quads = (count + 3) / 4, q2 = quads / rounds, r2 = quads % rounds;
+  const int warp = thread / 32;
+  const int64_t group = 4 * (round * q2 + (round < r2 ? round : r2)) + warp;
+  if (warp >= 4 * (q2 + (round < r2)) || group >= count) return -1;
+  const int64_t lane = 32 * (first + group) + thread % 32;
+  return lane < n ? lane : -1;
+}
+
+extern "C" int oneshot_busiest_warps(int64_t n, int64_t grid) {
+  return grid > 0 ? (int)split_busiest(n, grid) : 0;
 }
 
 #ifdef __CUDACC__
@@ -65,13 +114,13 @@ oneshot_kernel(uint8_t* __restrict__ out, uint8_t* __restrict__ ok,
     reinterpret_cast<uint4*>(tbl)[c] = reinterpret_cast<const uint4*>(table)[c];
   __syncthreads();
   uint32_t* row = scratch + kQtWords * ((int64_t)blockIdx.x * kOneshotBlock + threadIdx.x);
+  const int rounds = (int)split_rounds(n, gridDim.x);
 #pragma unroll 1
-  for (int64_t tile = (int64_t)blockIdx.x * kOneshotBlock; tile < n;
-       tile += (int64_t)gridDim.x * kOneshotBlock) {
-    const int64_t lane = tile + threadIdx.x;
-    if (lane < n) verify_init_lane(row, ok + lane, pk + 32 * lane);
+  for (int round = 0; round < rounds; round++) {
+    const int64_t lane = split_lane(n, gridDim.x, blockIdx.x, round, threadIdx.x);
+    if (lane >= 0) verify_init_lane(row, ok + lane, pk + 32 * lane);
     __syncthreads();
-    if (lane < n) poly_lane(out + 32 * lane, u + 32 * lane, v + 64 * lane, row, tbl);
+    if (lane >= 0) poly_lane(out + 32 * lane, u + 32 * lane, v + 64 * lane, row, tbl);
   }
 }
 
@@ -114,4 +163,16 @@ extern "C" void oneshot_host(uint8_t* out, uint8_t* ok, uint32_t* scratch, const
     if (scratch)
       for (int k = 0; k < kQtWords; k++) scratch[kQtWords * i + k] = row[k];
   }
+}
+
+// Host entry: the kernel's lane split for the tests. Returns the rounds of
+// n lanes over `grid` blocks and, unless lanes is null, fills lanes:
+// [rounds, grid, kOneshotBlock] int64, each thread's lane in each round, or -1.
+extern "C" int64_t oneshot_split_host(int64_t* lanes, int64_t n, int64_t grid) {
+  const int64_t rounds = split_rounds(n, grid);
+  for (int64_t k = 0; lanes && k < rounds; k++)
+    for (int64_t b = 0; b < grid; b++)
+      for (int t = 0; t < kOneshotBlock; t++)
+        lanes[(k * grid + b) * kOneshotBlock + t] = split_lane(n, grid, b, k, t);
+  return rounds;
 }

@@ -11,9 +11,11 @@ curve25519_tpu/ops/pallas/verify_kernel.py, and their plain versions.
   planes.ndim == 2, one q_table for every lane (the shared kernel).
 - ``verify_oneshot(pk, u, v)``: (enc(R') [..., 32] uint8, ok [...] bool),
   the two in one launch (csrc/oneshot.cu): persistent blocks, one per SM,
-  each looping over lane tiles, with a scratch row for the q_table of each
-  of its threads that the launch alone uses. The library sizes the scratch
-  (``oneshot_scratch_rows``) and takes its grid from it.
+  each running the same rounds over its share of the lanes (whole warps of
+  consecutive lanes, spread evenly over the blocks and their rounds), with
+  a scratch row for the q_table of each of its threads that the launch
+  alone uses. The library sizes the scratch (``oneshot_scratch_rows``) and
+  takes its grid from it.
 - ``digits(md, s)``: (u [..., 32], v [..., 64]) int32, the digits that
   poly_mult and verify_oneshot read: the 8-fold digits of S's raw bytes s
   [..., 32] (not reduced) and the 4-fold digits of h = md mod l from
@@ -27,7 +29,10 @@ models/tables; CUDA tensors launch the kernels (or raise), CPU tensors run
 the plain versions. ``digits`` takes CUDA tensors only: its plain version
 is fold.cut8_bytes(s) and fold.cut4_limbs(sc.from_digest(md)), which
 models/ed25519 calls for CPU tensors. ``launches`` counts kernel launches
-per kernel.
+per kernel. ``oneshot_warps`` sums over one-shot launches the warps of the
+busiest block (``busiest``, from the library's split) and the mean warps a
+block (``mean``): mean / busiest is the share of the SMs' warp slots the
+launch fills.
 """
 
 import torch
@@ -44,9 +49,11 @@ __all__ = ["verify_init", "verify_init_plain", "poly_mult", "poly_mult_plain",
            "verify_oneshot", "verify_oneshot_plain", "digits", "launches"]
 
 QT_SHAPE = (16, 8 * NLIMBS)
+ONESHOT_BLOCK = 512                    # csrc/oneshot.cu's kOneshotBlock
 
 launches = {"verify_init": 0, "poly": 0, "poly_shared": 0, "oneshot": 0,
             "digits": 0}
+oneshot_warps = {"busiest": 0, "mean": 0.0}
 
 
 def verify_init_plain(pk):
@@ -180,6 +187,11 @@ def verify_oneshot(pk, u, v):
                  u.data_ptr(), v.data_ptr(),
                  edwards_kernel.word_table(8, pk.device).data_ptr(), n, n=n)
     launches["oneshot"] += 1
+    if rows:
+        grid = rows // ONESHOT_BLOCK
+        oneshot_warps["busiest"] += build.load_cuda(
+            "oneshot").oneshot_busiest_warps(n, grid)
+        oneshot_warps["mean"] += -(-n // 32) / grid
     return unflatten(out), unflatten(ok)
 
 

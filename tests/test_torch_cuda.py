@@ -601,14 +601,17 @@ def _check_digits_kernel(dev):
 
 
 def test_partial_warps_and_tiles(dev, rng):
-    """The persistent one-shot kernel with fewer lanes than one tile, than
-    its grid, and more than its grid holds at once (its blocks loop over
-    tiles), against the two phases; the SHA-512 kernel's warp staging on
-    partial warps and blocks (n = 1, 31, 33, 127, 129) with block counts
-    (1-5) that differ inside each warp. (The gathers of keygen, sign and
-    the fold-8 base multiply on partial warps are held at the RAGGED sizes
-    by the tests of those kernels.)"""
-    lanes = verify_kernel.oneshot_scratch_rows(1 << 30, dev) + 33
+    """The persistent one-shot kernel with fewer lanes than one block, than
+    its grid, and more than its grid holds at once (its blocks run several
+    rounds: a packet batch of 165,000 lanes, and 2.5 waves and 17 lanes),
+    against the two phases, and its counter of the busiest block's warps;
+    the SHA-512 kernel's warp staging on partial warps and blocks (n = 1,
+    31, 33, 127, 129) with block counts (1-5) that differ inside each warp.
+    (The gathers of keygen, sign and the fold-8 base multiply on partial
+    warps are held at the RAGGED sizes by the tests of those kernels.)"""
+    wave = verify_kernel.oneshot_scratch_rows(1 << 30, dev)
+    sizes = (1, 31, 33, 300, wave + 33, 165_000, 5 * wave // 2 + 17)
+    lanes = max(sizes)
     pk, _ = ed25519.create_keypair(on(dev, rng.integers(0, 256, (lanes, 32),
                                                          dtype=np.uint8)))
     u = fold.cut8_bytes(on(dev, rng.integers(0, 256, (lanes, 32),
@@ -617,9 +620,17 @@ def test_partial_warps_and_tiles(dev, rng):
         0, 256, (lanes, 64), dtype=np.uint8))))
     planes, ok = verify_kernel.verify_init(pk)
     r = verify_kernel.poly_mult(u, v, planes)
-    for n in (1, 31, 33, 300, lanes):
+    for n in sizes:
+        before = dict(verify_kernel.oneshot_warps)
         r1, ok1 = verify_kernel.verify_oneshot(pk[:n], u[:n], v[:n])
         assert torch.equal(r1, r[:n]) and torch.equal(ok1, ok[:n]), n
+        if n == 165_000:            # busiest 40, mean 39.07 on 132 SMs
+            grid = min(-(-n // 512), wave // 512)
+            warps = -(-n // 32)
+            got = {k: verify_kernel.oneshot_warps[k] - before[k]
+                   for k in before}
+            assert got["busiest"] == -(-warps // grid), got
+            assert got["mean"] == pytest.approx(warps / grid), got
     plain = verify_kernel.verify_oneshot_plain(pk[:33], u[:33], v[:33])
     assert torch.equal(plain[0], r[:33]) and torch.equal(plain[1], ok[:33])
     msg = on(dev, rng.integers(0, 256, (129, 600), dtype=np.uint8))

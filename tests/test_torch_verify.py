@@ -499,7 +499,51 @@ def test_host_kernels_equal_plain(lib, batch, digits):
     # the launch's scratch: a 512-thread block per 512 lanes, one per SM
     assert [lib.oneshot_scratch_rows(m, 132) for m in (1, 512, 513, 1 << 40)
             ] == [512, 512, 1024, 132 * 512]
+    _check_oneshot_split(lib)
     _check_verify_init_host_random_keys(lib)
+
+
+def _check_oneshot_split(lib):
+    """oneshot.cu's lane split over the grid of 132 SMs: every lane taken
+    once; each warp a whole group of 32 consecutive lanes from a multiple of
+    32 (the batch's last group cut at n), a block's warps of a round its
+    first ones and consecutive groups; the blocks' warps balanced to within
+    one, and a block's rounds to within a quad of 4 warps (one a scheduler),
+    all of them whole quads but the one with the block's last warps; as
+    many rounds as 512-lane tiles would take; the busiest block's warps as
+    oneshot_busiest_warps gives them (40 at 165,000 lanes, in rounds of 16,
+    12 and 12)."""
+    busiest = {}
+    for n in (1, 31, 33, 512, 513, 67_584, 67_585, 165_000, 262_144, 1 << 20):
+        grid = min(-(-n // 512), 132)
+        rounds = lib.oneshot_split_host(None, n, grid)
+        assert rounds == -(-(-(-n // 512)) // grid), n
+        lanes = np.full((rounds, grid, 512), -2, np.int64)
+        assert lib.oneshot_split_host(lanes.ctypes.data, n, grid) == rounds
+        np.testing.assert_array_equal(np.sort(lanes[lanes >= 0]),
+                                      np.arange(n), err_msg=str(n))
+        assert (lanes >= -1).all(), n
+        warps = lanes.reshape(rounds, grid, 16, 32)
+        used = warps[..., 0] >= 0                   # [round, block, warp]
+        first = warps[..., 0]
+        whole = first[..., None] + np.arange(32)
+        whole[whole >= n] = -1
+        assert (warps[used] == whole[used]).all() and (first[used] % 32 == 0
+                                                       ).all(), n
+        assert (used[..., 1:] <= used[..., :-1]).all(), n    # a prefix
+        pairs = used[..., 1:]
+        assert (np.diff(first, axis=-1)[pairs] == 32).all(), n
+        per_round = used.sum(-1)                    # [round, block]
+        per_block = per_round.sum(0)
+        quads = -(-per_round // 4)
+        assert np.ptp(per_block) <= 1 and (np.ptp(quads, axis=0) <= 1).all()
+        np.testing.assert_array_equal(quads.sum(0), -(-per_block // 4))
+        assert per_block.max() == lib.oneshot_busiest_warps(n, grid) == -(
+            -(-(-n // 32)) // grid), n
+        busiest[n] = per_round[:, per_block.argmax()].tolist()
+    assert busiest[165_000] == [16, 12, 12]
+    assert busiest[262_144] == [16, 16, 16, 15]
+    assert lib.oneshot_busiest_warps(0, 0) == 0
 
 
 def _check_poly_and_oneshot_host(lib, pk, u, v, planes, shared_lanes):
