@@ -40,11 +40,13 @@ nothing of JAX or of the JAX package. Phases, each printing a line:
 6. the verify paths at full size (262,144 distinct keys, 64-byte
    messages), each driven with the launch counts set to 0 just before it
    and read just after: verify_init, verify_check against that context,
-   verify_check of one key's signatures against its unbatched context, and
-   the one-shot verify; every valid lane must verify and every tampered lane
-   fail; then each verify kernel timed and held equal to its plain version,
-   and the one-shot kernel against Verify_Init and the multiply back to
-   back;
+   verify_check of one key's signatures against its unbatched context, the
+   one-shot verify, and verify_cached against a context of every other
+   lane's key (the rest missed); every valid lane must verify and every
+   tampered lane fail; then each verify kernel timed and held equal to its
+   plain version (the lookup and the keyed kernel against a table of 1,500
+   keys), and the one-shot kernel against Verify_Init and the multiply
+   back to back;
 7. the rest of the single-device API on the card: sign_ragged and
    verify_ragged of 65,536 messages of 0-1,200 bytes (10 SHA-512 block
    buckets; sign, sign blinded, verify, verify given a ctx, one key's
@@ -109,6 +111,7 @@ CARD_TESTS_N = 11             # phase 3: its `cuda` cases, every one run
 CARD_TESTS_TIMEOUT = 600      # phase 3: seconds for the card's tests
 RAGGED_MSGS = 65_536          # phase 7: messages of 0-1,200 bytes
 RAGGED_MAX = 1200
+VOTE_KEYS = 1_500             # phase 6: the keyed kernel's table of keys
 CTX_KEYS = 16_384             # phase 7: the saved verify context
 SC_LANES = 4096               # phase 7: the mod-l selftest ops
 OO_CALLS = 50                 # phase 7: calls per single-op latency
@@ -142,6 +145,10 @@ KERNELS = {
                     ("poly_kernel",)),
     "poly_shared_kernel": ("poly.cu", PALLAS + "verify_kernel.py:85",
                            ("poly_shared_kernel",)),
+    "poly_keyed_kernel": ("poly.cu", PALLAS + "verify_kernel.py:85",
+                          ("poly_keyed_kernel",)),
+    # no TPU kernel: verify_cached's lookup of each lane's key
+    "key_lookup_kernel": ("poly.cu", "none", ("key_lookup_kernel",)),
     "oneshot_kernel": ("oneshot.cu", PALLAS + "verify_kernel.py:320",
                        ("oneshot_kernel",)),
     # no TPU kernel: the XLA ops of the JAX verify's fold digits
@@ -696,6 +703,7 @@ def phase_verify_main(dev, rng, card, counts, batch=MAIN_BATCH):
     ctx = path("verify_init", {"verify_init_kernel": 1}, ed25519.verify_init,
                pk)
     check(bool(ctx["ok"].all()), "a valid key did not decode")
+    ctx_half = ed25519.verify_init(pk[::2])       # the odd lanes' keys missed
     for label, launched, fn, args, expect in (
             ("verify_check", {"sha512_kernel": 1, "pack_words_kernel": 1,
                               "digits_kernel": 1, "poly_kernel": 1},
@@ -707,7 +715,11 @@ def phase_verify_main(dev, rng, card, counts, batch=MAIN_BATCH):
              ed25519.verify_check, (ctx_one, sig_one, msg), want),
             ("verify", {"sha512_kernel": 1, "pack_words_kernel": 1,
                         "digits_kernel": 1, "oneshot_kernel": 1},
-             ed25519.verify, (sig, pk, msg), want)):
+             ed25519.verify, (sig, pk, msg), want),
+            ("verify_cached", {"sha512_kernel": 1, "pack_words_kernel": 1,
+                               "digits_kernel": 1, "key_lookup_kernel": 1,
+                               "poly_keyed_kernel": 1},
+             ed25519.verify_cached, (ctx_half, sig, pk, msg), want)):
         got = path(label, launched, fn, *args)
         check(torch.equal(got, expect), "%s: %d of %d lanes wrong"
               % (label, int((got != expect).sum()), batch))
@@ -717,6 +729,11 @@ def phase_verify_main(dev, rng, card, counts, batch=MAIN_BATCH):
 
     u, v = verify_digits(sig, pk, msg)
     u1, v1 = verify_digits(sig_one, pk[0], msg)
+    # a vote batch's shape: each lane's key among VOTE_KEYS cached ones
+    staked = ed25519.verify_init(pk[:VOTE_KEYS])
+    voters = pk[torch.arange(batch, device=dev) % VOTE_KEYS]
+    index = (voters, staked["pk"], vk.key_index(staked["pk"]))
+    lookup = vk.key_lookup(*index)
     cases = {
         "verify_init_kernel": (vk.verify_init, vk.verify_init_plain, (pk,),
                                bound.verify_init_ops(),
@@ -727,6 +744,16 @@ def phase_verify_main(dev, rng, card, counts, batch=MAIN_BATCH):
         "poly_shared_kernel": (vk.poly_mult, vk.poly_mult_plain,
                                (u1, v1, ctx_one["planes"]), bound.poly_ops(),
                                batch * (128 + 256 + 32) + 2560),
+        "key_lookup_kernel": (
+            lambda *a: vk.key_lookup(*a)[::2],       # the order's is free
+            lambda *a: vk.key_lookup_plain(*a)[::2], index,
+            (Counter(), 0), batch * (32 + 4 + 8) + VOTE_KEYS * (32 + 8 + 4)),
+        "poly_keyed_kernel": (
+            vk.poly_keyed,
+            lambda u, v, lookup, *a: vk.poly_keyed_plain(u, v, lookup[0], *a),
+            (u, v, lookup, staked["planes"], staked["ok"], voters),
+            bound.poly_ops(),
+            batch * (128 + 256 + 4 + 8 + 32 + 32 + 1) + VOTE_KEYS * 2560),
         "oneshot_kernel": (vk.verify_oneshot, vk.verify_oneshot_plain,
                            (pk, u, v), bound.verify_ops(0),
                            batch * (32 + 128 + 256 + 32 + 1)),

@@ -14,12 +14,18 @@ Verify_Init kernel, `verify_check` four (the packing and SHA-512 kernels for
 the digest, the digits kernel for the fold digits of S and of h, then the
 poly kernel with a q_table per lane, or the shared one for an unbatched
 context) and `verify` four (packing, SHA-512, digits, then the one-shot
-kernel). `sign_ragged` and `verify_ragged` take a list of messages of any
-lengths and make one such call per SHA-512 block count
-(utils/bucketing.py); `verify_ragged` runs `verify_init` once for the whole
-batch, or not at all given a context. On the CPU all of them run their
-plain versions. A blinding context
-(models/blinding.py) changes no output byte.
+kernel). `verify_cached` serves signers of a known set from a context of
+their keys: five launches, the packing, SHA-512 and digits kernels, the
+key lookup kernel, then the keyed poly kernel, which reads each lane's
+q_table by its key's row and runs Verify_Init only for lanes whose key is
+not in the context; given its lanes in host memory, it copies them in
+in two parts and makes those launches for each, the second part's copy
+running under the first part's kernels. `sign_ragged` and `verify_ragged`
+take a list of messages of any lengths and make one such call per SHA-512
+block count (utils/bucketing.py); `verify_ragged` runs `verify_init` once
+for the whole batch, or not at all given a context. On the CPU all of them
+run their plain versions. A blinding context (models/blinding.py) changes
+no output byte.
 
 Verification semantics (those of the JAX package, frozen by
 tests/test_edge_encodings.py): a y >= p decodes as y - p; x = 0 with the
@@ -40,8 +46,8 @@ from curve25519_tpu_torch.ops.cuda import (
 from curve25519_tpu_torch.utils import bucketing, profiling
 
 __all__ = ["create_keypair", "sign", "verify", "verify_init", "verify_check",
-           "verify_tablefree", "verify_finish", "sign_ragged", "verify_ragged",
-           "calculate_x", "unpack_point"]
+           "verify_cached", "verify_tablefree", "verify_finish", "sign_ragged",
+           "verify_ragged", "calculate_x", "unpack_point"]
 
 
 def _blinding_args(blinding, device):
@@ -167,6 +173,97 @@ def verify(sig, pk, msg, msg_len=None, strict=False, device=None):
     u, v = _digits(sig, pk, msg, msg_len, batch)
     r_bytes, ok = verify_kernel.verify_oneshot(pk.expand(batch + (32,)), u, v)
     return _verdict(r_bytes, ok, sig, strict)
+
+
+@profiling.spanned("ed25519.key_lookup")
+def _key_lookup(ctx, pk):
+    """verify_kernel.key_lookup of keys pk [..., 32] among the context's
+    keys, with their index (sorted 8-byte prefixes) made at the context's
+    first lookup and kept in it as "_keys", which utils.checkpoint does not
+    save."""
+    keys = ctx["pk"].reshape(-1, 32)
+    if "_keys" not in ctx:
+        ctx["_keys"] = verify_kernel.key_index(keys)
+    return verify_kernel.key_lookup(pk, keys, ctx["_keys"])
+
+
+@profiling.spanned("ed25519.verify_cached", n=torch.Tensor.numel)
+def verify_cached(ctx, sig, pk, msg, msg_len=None, strict=False):
+    """verify(sig, pk, msg, msg_len, strict), lane for lane, for signers
+    from a known set: ctx = verify_init(keys [K, 32]) of K >= 1 cached keys
+    (a validator's staked identities for an epoch). Each lane's pk is looked
+    up among them on the device; a lane whose key is cached reads that
+    key's q_table (no Verify_Init, no copy of its planes), any other runs
+    Verify_Init on its own pk, as verify does. On a card the lookup and the
+    keyed kernel are a launch each, and the call does not wait on the
+    device before its verdicts are read; on the CPU it runs the plain
+    versions. With a context on a card, pk and the other tensors may be in
+    host memory (page-locked, for the copies to run under the kernels): the
+    call copies the lanes in on a side stream in two parts, the second
+    part's copy running while the first part is verified, and returns the
+    verdicts on the card."""
+    dev = ctx["pk"].device
+    if dev.type == "cuda" and isinstance(pk, torch.Tensor) \
+            and pk.device.type == "cpu":
+        return _cached_from_host(ctx, sig, pk, msg, msg_len, strict)
+    return _cached(ctx, sig, pk, msg, msg_len, strict)
+
+
+def _cached(ctx, sig, pk, msg, msg_len, strict):
+    """verify_cached of inputs on the context's device."""
+    pk = as_bytes(pk, "pk", 32, ctx["pk"].device)
+    sig, msg, msg_len, batch = _inputs(pk, sig, msg, msg_len)
+    u, v = _digits(sig, pk, msg, msg_len, batch)
+    pk = pk.expand(batch + (32,))
+    r_bytes, ok = verify_kernel.poly_keyed(
+        u, v, _key_lookup(ctx, pk),
+        ctx["planes"].reshape((-1,) + verify_kernel.QT_SHAPE),
+        ctx["ok"].reshape(-1), pk)
+    return _verdict(r_bytes, ok, sig, strict)
+
+
+# The share of a host batch's lanes that verify_cached copies in before it
+# launches any kernel: its copy (1.1 ms of a vote batch's 1.5 ms on an H100)
+# outlasts the host's launches of that part (about 1 ms), so the card does
+# not wait for them, and the rest is copied under that part's kernels.
+FIRST_PART = 0.75
+_copy_streams = {}
+
+
+def _cached_from_host(ctx, sig, pk, msg, msg_len, strict):
+    """verify_cached of host tensors with a context on a card: the first
+    FIRST_PART of the lanes, then the rest, each copied in on the card's
+    side stream (after the work already queued on the current stream,
+    whose freed memory the copies may reuse) and verified on the current
+    stream once its copy is done. The first part's copy outlasts the
+    host's launches of its kernels, so the card does not wait for them;
+    the second part's copy is queued after those launches and runs under
+    the first part's kernels."""
+    dev = ctx["pk"].device
+    pk = as_bytes(pk, "pk", 32, pk.device)
+    sig, msg, msg_len, batch = _inputs(pk, sig, msg, msg_len)
+    n = batch.numel()
+    lanes = [t.expand(batch + tail).reshape((n,) + tail) for t, tail in (
+        (sig, (64,)), (pk, (32,)), (msg, msg.shape[-1:]), (msg_len, ()))]
+    if dev not in _copy_streams:
+        _copy_streams[dev] = torch.cuda.Stream(dev)
+    main, side = torch.cuda.current_stream(dev), _copy_streams[dev]
+    side.wait_stream(main)
+    verdicts = []
+    cut = int(n * FIRST_PART)
+    for a, b in ((0, cut), (cut, n)):
+        if a == b:
+            continue
+        with torch.cuda.stream(side):
+            part = [t[a:b].to(dev, non_blocking=True) for t in lanes]
+            copied = side.record_event()
+        for t in part:
+            t.record_stream(main)
+        main.wait_event(copied)
+        verdicts.append(_cached(ctx, *part, strict))
+    if not verdicts:
+        return torch.zeros(batch, dtype=torch.bool, device=dev)
+    return torch.cat(verdicts).reshape(batch)
 
 
 def verify_tablefree(sig, pk, msg, msg_len=None, strict=False, device=None):

@@ -72,8 +72,14 @@ LIBRARIES = {
                               _i64, _vp, _i64, _vp, _i64, _vp, _i64, _vp]}),
     "verify": (("verify_init_kernel",),
                {"verify_init_launch": [_vp, _vp, _vp, _i64, _vp]}),
-    "poly": (("poly_kernel", "poly_shared_kernel"),
-             {"poly_launch": [_vp, _vp, _vp, _vp, _int, _vp, _i64, _vp]}),
+    "poly": (("poly_kernel", "poly_shared_kernel", "poly_keyed_kernel",
+              "key_lookup_kernel"),
+             {"poly_launch": [_vp, _vp, _vp, _vp, _int, _vp, _i64, _vp],
+              "key_lookup_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
+                                    _i64, _vp],
+              "poly_keyed_scratch_rows": [_i64, _int],
+              "poly_keyed_launch": [_vp, _vp, _vp, _i64, _vp, _vp, _vp, _vp,
+                                    _vp, _vp, _vp, _vp, _vp, _i64, _vp]}),
     "oneshot": (("oneshot_kernel",),
                 {"oneshot_scratch_rows": [_i64, _int],
                  "oneshot_busiest_warps": [_i64, _i64],
@@ -286,6 +292,14 @@ def load_host(so_path):
     lib.verify_init_host.restype = None
     lib.poly_host.argtypes = [_vp, _vp, _vp, _vp, _int, _vp, _i64]
     lib.poly_host.restype = None
+    lib.key_lookup_host.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
+                                    _i64]
+    lib.key_lookup_host.restype = None
+    lib.poly_keyed_host.argtypes = [_vp, _vp, _vp, _i64, _vp, _vp, _vp, _vp,
+                                    _i64, _vp, _vp, _vp, _vp, _i64]
+    lib.poly_keyed_host.restype = None
+    lib.poly_keyed_scratch_rows.argtypes = [_i64, _int]
+    lib.poly_keyed_scratch_rows.restype = ctypes.c_int
     lib.oneshot_host.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64]
     lib.oneshot_host.restype = None
     lib.oneshot_scratch_rows.argtypes = [_i64, _int]

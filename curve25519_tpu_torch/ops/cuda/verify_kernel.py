@@ -16,6 +16,18 @@ curve25519_tpu/ops/pallas/verify_kernel.py, and their plain versions.
   a scratch row for the q_table of each of its threads that the launch
   alone uses. The library sizes the scratch (``oneshot_scratch_rows``) and
   takes its grid from it.
+- ``key_lookup(pk, keys, index)``: (key [...] int32, order, counts) of
+  public keys pk [..., 32] among K cached keys [K, 32] (``key_index(keys)``,
+  their sorted 8-byte prefixes, made once per set of keys): each lane's row
+  of keys or -1, the lanes ordered misses first, and {misses, hits}, all on
+  the device (csrc/poly.cu's key_lookup_kernel).
+- ``poly_keyed(u, v, lookup, planes, key_ok, pk)``: (enc(R') [..., 32]
+  uint8, ok [...] bool) for lanes whose keys come from a known set: planes
+  [K, 16, 160] and key_ok [K] are a verify context of K keys, lookup
+  key_lookup's of pk; a lane keyed -1 runs Verify_Init on its own pk as
+  verify_oneshot would. One launch (poly_keyed_kernel): hit lanes read their
+  key's q_table by index, with no per-lane copy, and no host read sizes the
+  launch.
 - ``digits(md, s)``: (u [..., 32], v [..., 64]) int32, the digits that
   poly_mult and verify_oneshot read: the 8-fold digits of S's raw bytes s
   [..., 32] (not reduced) and the 4-fold digits of h = md mod l from
@@ -24,15 +36,18 @@ curve25519_tpu/ops/pallas/verify_kernel.py, and their plain versions.
 
 The multiply reads the folding-8 table as ``edwards_kernel.word_table(8)``.
 
-The first three have a ``*_plain`` version on models/edwards and
-models/tables; CUDA tensors launch the kernels (or raise), CPU tensors run
-the plain versions. ``digits`` takes CUDA tensors only: its plain version
-is fold.cut8_bytes(s) and fold.cut4_limbs(sc.from_digest(md)), which
-models/ed25519 calls for CPU tensors. ``launches`` counts kernel launches
+The first five have a ``*_plain`` version in plain PyTorch (on
+models/edwards and models/tables); CUDA tensors launch the kernels (or
+raise), CPU tensors run the plain versions. ``digits`` takes CUDA tensors
+only: its plain version is fold.cut8_bytes(s) and
+fold.cut4_limbs(sc.from_digest(md)), which models/ed25519 calls for CPU
+tensors. ``launches`` counts kernel launches
 per kernel. ``oneshot_warps`` sums over one-shot launches the warps of the
 busiest block (``busiest``, from the library's split) and the mean warps a
 block (``mean``): mean / busiest is the share of the SMs' warp slots the
-launch fills.
+launch fills. ``cached_lanes`` tallies the lanes of poly_keyed by route,
+``hit`` and ``miss``: each a tensor on the device of the last call, added
+to without a sync; reading it (``int(...)``) waits for the card.
 """
 
 import torch
@@ -46,14 +61,17 @@ from curve25519_tpu_torch.ops.cuda import (
 from curve25519_tpu_torch.utils import profiling
 
 __all__ = ["verify_init", "verify_init_plain", "poly_mult", "poly_mult_plain",
-           "verify_oneshot", "verify_oneshot_plain", "digits", "launches"]
+           "key_index", "key_lookup", "key_lookup_plain", "poly_keyed",
+           "poly_keyed_plain", "verify_oneshot", "verify_oneshot_plain",
+           "digits", "launches", "cached_lanes"]
 
 QT_SHAPE = (16, 8 * NLIMBS)
 ONESHOT_BLOCK = 512                    # csrc/oneshot.cu's kOneshotBlock
 
-launches = {"verify_init": 0, "poly": 0, "poly_shared": 0, "oneshot": 0,
-            "digits": 0}
+launches = {"verify_init": 0, "poly": 0, "poly_shared": 0, "key_lookup": 0,
+            "poly_keyed": 0, "oneshot": 0, "digits": 0}
 oneshot_warps = {"busiest": 0, "mean": 0.0}
+cached_lanes = {"hit": 0, "miss": 0}
 
 
 def verify_init_plain(pk):
@@ -83,9 +101,58 @@ def poly_mult_plain(u, v, planes):
 
 
 def verify_oneshot_plain(pk, u, v):
-    """The plain version of the one-shot kernel: the two plain phases."""
+    """The plain version of the one-shot kernel: the two plain phases, the
+    key's flag broadcast over the batch as the kernel's."""
     planes, ok = verify_init_plain(pk)
-    return poly_mult_plain(u, v, planes), ok
+    r = poly_mult_plain(u, v, planes)
+    return r, ok.expand(r.shape[:-1])
+
+
+def _prefix(pk):
+    """The first 8 bytes of keys pk [..., 32] as one little-endian int64
+    each."""
+    return pk[..., :8].contiguous().view(torch.int64)[..., 0]
+
+
+def key_index(keys):
+    """(prefixes [K] int64, rows [K] int32) of keys [K, 32] uint8, what
+    key_lookup searches: each key's first 8 bytes as one little-endian
+    int64, sorted, and the key's row of keys."""
+    prefixes, rows = torch.sort(_prefix(keys))
+    return prefixes, rows.to(torch.int32)
+
+
+def key_lookup_plain(pk, keys, index):
+    """The plain version of the lookup kernel (see key_lookup), its order
+    the misses then the hits, each in lane order. It reads the longest run
+    of lanes' equal prefixes on the host."""
+    prefixes, rows = index
+    prefix = _prefix(pk)
+    first = torch.searchsorted(prefixes, prefix)
+    run = torch.searchsorted(prefixes, prefix, right=True) - first
+    key = torch.full(prefix.shape, -1, dtype=torch.int32, device=pk.device)
+    for i in range(int(run.max()) if run.numel() else 0):
+        row = rows[(first + i).clamp(max=len(rows) - 1)]
+        key = torch.where((key < 0) & (run > i) & (keys[row] == pk).all(-1),
+                          row, key)
+    hit = key.reshape(-1) >= 0
+    order = torch.sort(hit.to(torch.uint8), stable=True).indices
+    hits = hit.sum()
+    return key, order, torch.stack([hit.numel() - hits, hits])
+
+
+def poly_keyed_plain(u, v, key, planes, key_ok, pk):
+    """The plain version of the keyed kernel: each lane's q_table and flag
+    are its key's row of planes and key_ok, or for key -1 Verify_Init's of
+    its own pk; then the plain double-scalar multiply."""
+    batch = torch.broadcast_shapes(u.shape[:-1], v.shape[:-1], key.shape,
+                                   pk.shape[:-1])
+    key = key.expand(batch)
+    miss = key < 0
+    row = key.clamp(min=0).long()
+    qt, ok = planes[row], key_ok[row]
+    qt[miss], ok[miss] = verify_init_plain(pk.expand(batch + (32,))[miss])
+    return poly_mult_plain(u, v, qt), ok
 
 
 def _check(t, name, dtype, tail):
@@ -154,6 +221,109 @@ def poly_mult(u, v, planes):
                  edwards_kernel.word_table(8, u.device).data_ptr(), n, n=n)
     launches["poly_shared" if shared else "poly"] += 1
     return unflatten(out)
+
+
+def key_lookup(pk, keys, index):
+    """(key [...] int32, order [n] int64, counts [2] int64) of public keys
+    pk [..., 32] uint8 among K >= 1 cached keys [K, 32] with their
+    key_index: each lane's row of keys or -1 (a lane's prefix is searched
+    among the sorted prefixes, and the keys from the place found that share
+    it are compared whole), the flat lanes ordered the misses first, and
+    {misses, hits}. For CUDA tensors one launch of key_lookup_kernel (a
+    warp takes its lanes' places in `order` in any order), which reads
+    nothing on the host; for CPU tensors key_lookup_plain."""
+    _check(pk, "pk", torch.uint8, (32,))
+    _check(keys, "keys", torch.uint8, (32,))
+    prefixes, rows = index
+    if keys.ndim != 2 or not len(keys) or prefixes.dtype != torch.int64 \
+            or rows.dtype != torch.int32 or prefixes.shape != keys.shape[:1] \
+            or rows.shape != keys.shape[:1]:
+        raise ValueError("keys must be [K, 32] uint8 with K >= 1, and their "
+                         "index [K] int64 prefixes and [K] int32 rows, got "
+                         "%s, %s %s and %s %s"
+                         % (tuple(keys.shape), tuple(prefixes.shape),
+                            prefixes.dtype, tuple(rows.shape), rows.dtype))
+    _same_device(pk, keys, prefixes, rows)
+    if not use_cuda(pk):
+        return key_lookup_plain(pk, keys, index)
+    n, unflatten = flatten_batch(pk.shape[:-1])
+    dev = pk.device
+    pk = pk.reshape(n, 32).contiguous()
+    key = torch.empty((n,), dtype=torch.int32, device=dev)
+    order = torch.empty((n,), dtype=torch.int64, device=dev)
+    counts = torch.empty((2,), dtype=torch.int64, device=dev)
+    build.launch("poly", "key_lookup_launch", dev, key.data_ptr(),
+                 order.data_ptr(), counts.data_ptr(), pk.data_ptr(),
+                 prefixes.contiguous().data_ptr(),
+                 rows.contiguous().data_ptr(), keys.contiguous().data_ptr(),
+                 len(keys), n, n=n)
+    launches["key_lookup"] += 1
+    return unflatten(key), order, counts
+
+
+def _tally(counts):
+    """Add a call's {misses, hits} (a tensor) to cached_lanes on its
+    device, without a sync."""
+    for i, name in enumerate(("miss", "hit")):
+        kept = cached_lanes[name]
+        if isinstance(kept, torch.Tensor):
+            kept = kept.to(counts.device)
+        cached_lanes[name] = counts[i] + kept
+
+
+def poly_keyed(u, v, lookup, planes, key_ok, pk):
+    """(enc(R') [..., 32] uint8, ok [...] bool) from a table of K keys'
+    q_tables (see the module docstring), lookup = key_lookup(pk, ...): one
+    launch for CUDA tensors, poly_keyed_plain for CPU ones; both add the
+    lookup's counts to cached_lanes. u and v broadcast to the lookup's
+    batch, pk's."""
+    key, order, counts = lookup
+    _check(u, "u", torch.int32, (32,))
+    _check(v, "v", torch.int32, (64,))
+    _check(pk, "pk", torch.uint8, (32,))
+    _check(planes, "planes", torch.int8, QT_SHAPE)
+    if key.dtype != torch.int32 or key.shape != pk.shape[:-1] or \
+            planes.ndim != 3 or key_ok.dtype != torch.bool or \
+            key_ok.shape != planes.shape[:1]:
+        raise ValueError("key must be pk's [...] int32 and the table planes "
+                         "[K, 16, 160] int8 with key_ok [K] bool, got %s %s, "
+                         "%s and %s %s" % (key.dtype, tuple(key.shape),
+                                           tuple(planes.shape),
+                                           tuple(key_ok.shape), key_ok.dtype))
+    _same_device(u, v, key, planes, key_ok, pk)
+    _tally(counts)
+    if not use_cuda(u):
+        return poly_keyed_plain(u, v, key, planes, key_ok, pk)
+    batch = key.shape
+    if torch.broadcast_shapes(u.shape[:-1], v.shape[:-1], batch) != batch:
+        raise ValueError("u %s and v %s do not broadcast to the keys' batch "
+                         "%s" % (tuple(u.shape), tuple(v.shape), tuple(batch)))
+    n, unflatten = flatten_batch(batch)
+    dev = u.device
+    with profiling.span("verify_kernel.poly_keyed_rows", n):
+        u, v = _rows(u, batch, n, (32,)), _rows(v, batch, n, (64,))
+        pk, key = pk.reshape(n, 32).contiguous(), key.reshape(n)
+        planes, key_ok = _aligned(planes.contiguous()), key_ok.contiguous()
+        out = torch.empty((n, 32), dtype=torch.uint8, device=dev)
+        ok = torch.empty((n,), dtype=torch.bool, device=dev)
+        rows = max(1, keyed_scratch_rows(n, dev))
+        scratch = torch.empty((rows,) + QT_SHAPE, dtype=torch.int8,
+                              device=dev)
+    build.launch("poly", "poly_keyed_launch", dev, out.data_ptr(),
+                 ok.data_ptr(), scratch.data_ptr(), rows, u.data_ptr(),
+                 v.data_ptr(), order.data_ptr(), key.data_ptr(),
+                 counts.data_ptr(), planes.data_ptr(), key_ok.data_ptr(),
+                 pk.data_ptr(), edwards_kernel.word_table(8, dev).data_ptr(),
+                 n, n=n)
+    launches["poly_keyed"] += 1
+    return unflatten(out), unflatten(ok)
+
+
+def keyed_scratch_rows(n, device):
+    """Scratch rows of the keyed launch for n lanes on `device`, as the
+    library decides them (a row a thread of one full wave, n at most)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return build.load_cuda("poly").poly_keyed_scratch_rows(n, sms)
 
 
 def oneshot_scratch_rows(n, device):

@@ -497,10 +497,13 @@ def test_verify_kernels_equal_plain(dev, rng):
     r1, ok1 = verify_kernel.verify_oneshot(pk, u, v)
     torch.cuda.synchronize()
     assert torch.equal(r1, r) and torch.equal(ok1, ok)
-    assert verify_kernel.launches == {k: before[k] + 1 for k in before}
+    assert verify_kernel.launches == dict(before, **{
+        k: before[k] + 1 for k in ("verify_init", "poly", "poly_shared",
+                                   "oneshot", "digits")})
     assert same((r1, ok1), verify_kernel.verify_oneshot_plain(pk, u, v))
     _check_verify_kernel_shapes(pk, u, v, md, s, planes, ok, r)
     _check_digits_kernel(dev)
+    _check_keyed_kernel(dev)
 
 
 def _check_verify_kernel_shapes(pk, u, v, md, s, planes, ok, r):
@@ -526,8 +529,7 @@ def _check_verify_kernel_shapes(pk, u, v, md, s, planes, ok, r):
     assert same(vk.verify_oneshot(pk[5], u[5], v[5]), (r[5], ok[5]))
     r1, ok1 = vk.verify_oneshot(pk[9], u[:16], v[:16])
     r0, ok0 = vk.verify_oneshot_plain(pk[9], u[:16], v[:16])
-    # the plain version keeps a rank-1 key's verdict rank-0
-    assert torch.equal(r1, r0) and torch.equal(ok1, ok0.expand(16))
+    assert torch.equal(r1, r0) and torch.equal(ok1, ok0)
     assert torch.equal(vk.poly_mult(u[0], v[:16], planes[:16]),
                        vk.poly_mult_plain(u[0], v[:16], planes[:16]))
     assert same(vk.digits(md[:16], s[5]), (u[5].expand(16, 32), v[:16]))
@@ -598,6 +600,129 @@ def _check_digits_kernel(dev):
     before = dict(verify_kernel.launches)
     assert bool(ed25519.verify_tablefree(sig, pk, msg, lengths).all())
     assert verify_kernel.launches == before
+
+
+def _check_keyed_kernel(dev):
+    """The lookup and keyed poly kernels at a vote batch: 165,000 lanes over
+    a table of 1,500 keys (8 of them the edge keys, some that fail to
+    decode), one lane in 512 and a run of 300 lanes signed by keys of their
+    own, one lane a cached key with a byte changed past its prefix. The
+    lookup finds each lane's row (the plain version's), orders the misses
+    first and counts them; hit lanes equal poly_kernel on the planes
+    materialized per lane and carry their key's flag, miss lanes equal the
+    one-shot kernel. Then every lane a miss at more lanes than the
+    scratch's wave (its threads take the misses in turns), the RAGGED sizes
+    and one lane, the launch counts and the tally of cached_lanes; and
+    verify_cached equal to verify on signed lanes, strict and not, with
+    CUDA's sync debug mode set to raise on any wait for the device, for
+    lanes on the card and for page-locked lanes in host memory (copied in
+    in two parts); host lanes at 0, 1 and 3 lanes and unbatched."""
+    vk = verify_kernel
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+
+    def rand(*shape, high=256, dtype=torch.uint8):
+        return torch.randint(0, high, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    n, k = 165_000, 1_500
+    keys, _ = ed25519.create_keypair(rand(k, 32))
+    keys[:len(EDGE_PK)] = le_rows(dev, EDGE_PK)
+    keys[len(EDGE_PK):len(EDGE_PK) + 40] = rand(40, 32)   # most off the curve
+    planes, key_ok = vk.verify_init(keys)
+    assert 0 < int(key_ok.sum()) < k
+    want_key = rand(n, high=k, dtype=torch.int32)
+    want_key[::512] = -1
+    want_key[1000:1300] = -1
+    miss = want_key < 0
+    pk = keys[want_key.clamp(min=0)]
+    pk[miss] = rand(int(miss.sum()), 32)
+    pk[miss.nonzero()[::2, 0]] = ed25519.create_keypair(
+        rand(-(-int(miss.sum()) // 2), 32))[0]
+    pk[2048, 20] ^= 1                   # a cached key's prefix, another key
+    want_key[2048], miss[2048] = -1, True
+    index = (keys, vk.key_index(keys))
+    u = fold.cut8_bytes(rand(n, 32))
+    v = fold.cut4_limbs(sc.from_digest(rand(n, 64)))
+    u[:2], v[:2] = 255, 15
+    before, tally = dict(vk.launches), {
+        name: int(c) for name, c in vk.cached_lanes.items()}
+    lookup = vk.key_lookup(pk, *index)
+    key, order, counts = lookup
+    misses = int(miss.sum())
+    assert torch.equal(key, want_key) and counts.tolist() == [misses,
+                                                              n - misses]
+    assert torch.equal(key, vk.key_lookup_plain(pk, *index)[0])
+    assert torch.equal(order.sort().values, torch.arange(n, device=dev))
+    assert bool(miss[order[:misses]].all())
+    r, ok = vk.poly_keyed(u, v, lookup, planes, key_ok, pk)
+    torch.cuda.synchronize()
+    assert vk.launches == dict(before, key_lookup=before["key_lookup"] + 1,
+                               poly_keyed=before["poly_keyed"] + 1)
+    assert {name: int(c) - tally[name] for name, c in vk.cached_lanes.items()
+            } == {"hit": n - misses, "miss": misses}
+    hit = ~miss
+    at = key.clamp(min=0)
+    want = vk.poly_mult(u[hit], v[hit], planes[at[hit]])
+    assert torch.equal(r[hit], want) and torch.equal(ok[hit],
+                                                     key_ok[at[hit]])
+    want = vk.verify_oneshot(pk[miss], u[miss], v[miss])
+    assert same((r[miss], ok[miss]), want) and 0 < int(want[1].sum())
+    m = vk.keyed_scratch_rows(1 << 30, dev) + 999
+    strangers = ed25519.create_keypair(rand(m, 32))[0]
+    every = vk.key_lookup(strangers, *index)
+    assert every[2].tolist() == [m, 0]
+    assert same(vk.poly_keyed(u[:m], v[:m], every, planes, key_ok, strangers),
+                vk.verify_oneshot(strangers, u[:m], v[:m]))
+    for m in RAGGED + (1300,):
+        assert same(vk.poly_keyed(u[:m], v[:m], vk.key_lookup(pk[:m], *index),
+                                  planes, key_ok, pk[:m]), (r[:m], ok[:m])), m
+    assert same(vk.poly_keyed(u[5], v[5], vk.key_lookup(pk[5], *index),
+                              planes, key_ok, pk[5]), (r[5], ok[5]))
+    assert same(vk.poly_keyed_plain(u[990:1010], v[990:1010],
+                                    key[990:1010], planes, key_ok,
+                                    pk[990:1010]), (r[990:1010],
+                                                    ok[990:1010]))
+
+    signers, priv = ed25519.create_keypair(rand(64, 32))
+    ctx = ed25519.verify_init(signers[:48])
+    lanes = rand(4096, high=64, dtype=torch.int64)
+    msg, lengths = rand(4096, 330), rand(4096, high=331, dtype=torch.int32)
+    sig = ed25519.sign(priv[lanes], msg, lengths)
+    sig[::16, 7] ^= 1
+    sig[3::16, 40] ^= 1
+    msg[5::16, 0] ^= 1
+    sig[9::16, 32:] = le_rows(dev, [int.from_bytes(row(b), "little") + ELL
+                                    for b in sig[9::16, 32:]])  # S + l
+    for strict in (False, True):
+        want = ed25519.verify(sig, signers[lanes], msg, lengths,
+                              strict=strict)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = ed25519.verify_cached(ctx, sig, signers[lanes], msg,
+                                        lengths, strict=strict)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.equal(got, want), strict
+        assert 0 < int(got.sum()) < 4096
+        host = [t.cpu().pin_memory() for t in (sig, signers[lanes], msg,
+                                               lengths)]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = ed25519.verify_cached(ctx, *host, strict=strict)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert got.is_cuda and torch.equal(got, want), strict
+    for m in (0, 1, 3):
+        assert torch.equal(ed25519.verify_cached(
+            ctx, sig[:m].cpu(), signers[lanes][:m].cpu(), msg[:m].cpu(),
+            lengths[:m].cpu(), strict=True), want[:m]), m
+    assert torch.equal(ed25519.verify_cached(ctx, sig[7].cpu(),
+                                             signers[lanes[7]].cpu(),
+                                             msg[7].cpu(), 330),
+                       ed25519.verify(sig[7], signers[lanes[7]], msg[7]))
 
 
 def test_partial_warps_and_tiles(dev, rng):
@@ -765,6 +890,7 @@ def _check_verify_known_answers(dev, rng):
                                          for v in vecs])) for k in (1, 2, 3))
     ctx = ed25519.verify_init(pks)
     assert same((ctx["planes"], ctx["ok"]), verify_kernel.verify_init_plain(pks))
+    half = ed25519.verify_init(pks[::2])          # the other half not cached
     for strict in (False, True):
         want = [v[5 if strict else 4] for v in vecs]
         assert [curve.verify(v[2], v[1], v[3], strict) for v in vecs] == want
@@ -773,7 +899,9 @@ def _check_verify_known_answers(dev, rng):
                 ("verify_check", ed25519.verify_check(ctx, sigs, msgs,
                                                       strict=strict)),
                 ("verify_tablefree", ed25519.verify_tablefree(
-                    sigs, pks, msgs, strict=strict))):
+                    sigs, pks, msgs, strict=strict)),
+                ("verify_cached", ed25519.verify_cached(
+                    half, sigs, pks, msgs, strict=strict))):
             bad = [v[0] for v, g, w in zip(vecs, got.tolist(), want) if g != w]
             assert not bad, (label, strict, bad)
 

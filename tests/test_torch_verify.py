@@ -26,7 +26,14 @@ inputs of 200-1,000 bytes under one key, made by portbench's
 jwt_eddsa_gateway deployment, S + L among the faults) go through one key's
 context and verify_check(strict=True), held against portbench's
 Python-integer reference and the JAX package's strict verify_check, with
-their program spans recorded. Tolerance: exact bytes, limbs and verdicts.
+their program spans recorded. The benchmark's Solana votes (64 votes
+under 8 cached staked keys and one key outside them, made by portbench's
+solana_vote_sigverify deployment, with an undecodable key cached and one
+not cached, and S + L lanes) go through verify_cached, strict and not,
+held against verify and the Python-integer reference, with its spans and
+its tally of cached and missed lanes; poly.cu's keyed lane (g++) is held
+against its plain version and against the per-lane q_tables. Tolerance:
+exact bytes, limbs and verdicts.
 """
 
 import functools
@@ -53,6 +60,7 @@ from curve25519_tpu_torch.utils.interop import to_numpy
 
 from portbench import harness
 from portbench.deployments import jwt_eddsa_gateway as jwt
+from portbench.deployments import solana_vote_sigverify as votes
 from portbench.reference import curve
 
 from test_edge_encodings import MSG, VECTORS
@@ -243,6 +251,7 @@ def test_verdicts_equal_jax_and_frozen(batch, jax_ref, strict):
         assert not bad, (label, bad)
     if strict:
         _check_jwt_tokens_strict()
+    _check_votes_cached(strict)
 
 
 def jwt_tokens():
@@ -258,6 +267,64 @@ def jwt_tokens():
     lanes = made["lanes"]
     return (made["fixed"]["pk"], lanes["sig"], lanes["msg"],
             lanes["msg_len"], made["strata"]["malleated"])
+
+
+def vote_batch():
+    """(staked keys, pk, sig, msg, msg_len) on the CPU: 64 Solana votes of
+    220-330 bytes made by the benchmark's solana_vote_sigverify deployment,
+    8 of them (1 in 8) by a key outside the 8 staked ones, 16 invalid;
+    then an off-curve key added to the staked ones, which lanes 0-3 carry,
+    another that lanes 4-7 carry and no context holds, and S + L in the
+    first 4 valid lanes after them (accepted only without strict), which
+    come last."""
+    config = dict(harness.load_json(
+        harness.HERE / "configs" / "solana_vote_sigverify.json"),
+        staked_keys=8, unstaked_keys=1, miss_one_in=8, invalid_one_in=4)
+    made = votes.make(config, {"batch": 64, "pool": 1}, 2**32 + 22)
+    sig, pk, msg, msg_len = (made["lanes"][k].copy()
+                             for k in ("sig", "pk", "msg", "msg_len"))
+    off = [np.frombuffer(y.to_bytes(32, "little"), np.uint8) for y in (2, 5)]
+    pk[0:4], pk[4:8] = off
+    malleated = np.setdiff1d(np.arange(8, 64), made["strata"]["invalid"])[:4]
+    for lane in malleated:
+        s = int.from_bytes(sig[lane, 32:].tobytes(), "little") + curve.L
+        sig[lane, 32:] = np.frombuffer(s.to_bytes(32, "little"), np.uint8)
+    staked = np.concatenate([made["fixed"]["staked"], off[:1]])
+    return staked, pk, sig, msg, msg_len, malleated
+
+
+def _check_votes_cached(strict):
+    """verify_cached of the vote batch against a context of the staked keys
+    (and the off-curve one) equals verify and the Python-integer verify
+    lane for lane; its tally counts the lanes of keys outside the context
+    as misses; its lookup is built once, kept in the context, and not
+    saved with it."""
+    staked, pk, sig, msg, n, malleated = vote_batch()
+    want = [curve.verify(a.tobytes(), b.tobytes(), m[:k].tobytes(), strict)
+            for a, b, m, k in zip(sig, pk, msg, n)]
+    assert 0 < sum(want) < 64 and not any(want[:8])
+    assert [want[i] for i in malleated] == [not strict] * 4
+    ctx = ed25519.verify_init(t(staked))
+    assert ctx["ok"].tolist() == [True] * 8 + [False]
+    cached = (pk[:, None] == staked[None]).all(-1).any(-1)
+    misses = 64 - int(cached.sum())
+    assert misses == 4 + 8 - int(cached[4:8].sum()) > 8
+    tally = {k: int(c) for k, c in verify_kernel.cached_lanes.items()}
+    got = ed25519.verify_cached(ctx, t(sig), t(pk), t(msg), t(n),
+                                strict=strict)
+    assert got.tolist() == want
+    assert ed25519.verify(t(sig), t(pk), t(msg), t(n),
+                          strict=strict).tolist() == want
+    assert {k: int(c) - tally[k] for k, c in verify_kernel.cached_lanes.items()
+            } == {"hit": 64 - misses, "miss": misses}
+    index = ctx["_keys"]
+    assert index[0].tolist() == sorted(index[0].tolist())
+    assert bool(ed25519.verify_cached(ctx, t(sig[20]), t(pk[20]), t(msg[20]),
+                                      t(n[20]), strict=strict)) == want[20]
+    assert ctx["_keys"] is index
+    one = ed25519.verify_cached(ed25519.verify_init(t(pk[20])), t(sig),
+                                t(pk), t(msg), t(n), strict=strict)
+    assert one.tolist() == want
 
 
 def _check_jwt_tokens_strict():
@@ -348,6 +415,7 @@ def test_rank1_and_broadcast_calls(batch, monkeypatch):
         with pytest.raises(RuntimeError):
             ed25519.verify(to_numpy(sig[i]), to_numpy(pk[i]), to_numpy(msg[i]))
     _check_jwt_spans()
+    _check_votes_spans()
     _check_verify_ragged_routes_as_jax(monkeypatch)
 
 
@@ -384,6 +452,56 @@ def _check_jwt_spans():
                                       if r[2] == "ed25519.verify_check")
     assert launched == [("poly", 1, 48)]
     assert counted["poly_shared"] == verify_kernel.launches["poly_shared"] + 1
+
+
+def _check_votes_spans():
+    """A recording of the staked keys' verify_init and two verify_cached
+    calls over the vote batch: the CPU route, then the card route's row
+    preparation with its launch stubbed out (use_cuda forced, the scratch
+    sized without a card, build.launch kept aside). The API spans carry
+    their keys and lanes, each verify_cached holds its key_lookup span, the
+    second verify_kernel.poly_keyed_rows with its lanes, one launch each of
+    the lookup and keyed kernels is counted, and the first call adds its
+    hits and misses to the tally."""
+    staked, pk, sig, msg, n = (t(a) for a in vote_batch()[:5])
+    launched = []
+    tally = {k: int(c) for k, c in verify_kernel.cached_lanes.items()}
+    profiling.start_spans()
+    try:
+        ctx = ed25519.verify_init(staked)
+        ed25519.verify_cached(ctx, sig, pk, msg, n)
+        added = {k: int(c) - tally[k]
+                 for k, c in verify_kernel.cached_lanes.items()}
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(verify_kernel, "use_cuda", lambda _: True)
+            mp.setattr(verify_kernel, "launches", dict(verify_kernel.launches))
+            mp.setattr(verify_kernel, "cached_lanes", {"hit": 0, "miss": 0})
+            mp.setattr(verify_kernel, "keyed_scratch_rows",
+                       lambda lanes, dev: min(lanes, 16))
+            mp.setattr(build, "launch", lambda lib, fn, dev, *args, n=None: (
+                launched.append((lib, fn, args[3 if "keyed" in fn else 7],
+                                 n))))
+            ed25519.verify_cached(ctx, sig, pk, msg, n)
+            counted = dict(verify_kernel.launches)
+    finally:
+        records = profiling.stop_spans()
+    top = [(name, k) for _, _, name, parent, k in records if parent < 0]
+    assert top == [("ed25519.verify_init", 9), ("ed25519.verify_cached", 64),
+                   ("ed25519.verify_cached", 64)]
+    calls = [i for i, r in enumerate(records)
+             if r[2] == "ed25519.verify_cached"]
+    lookups = [r[3] for r in records if r[2] == "ed25519.key_lookup"]
+    assert lookups == calls
+    rows = [r for r in records if r[2] == "verify_kernel.poly_keyed_rows"]
+    assert len(rows) == 1 and rows[0][3] == calls[1] and rows[0][4] == 64
+    # the keyed launch's scratch rows, the lookup's keys
+    assert launched == [("poly", "key_lookup_launch", 9, 64),
+                        ("poly", "poly_keyed_launch", 16, 64)]
+    assert counted == dict(verify_kernel.launches, **{
+        k: verify_kernel.launches[k] + 1 for k in ("key_lookup",
+                                                   "poly_keyed")})
+    misses = 64 - int((pk[:, None] == staked[None]).all(-1).any(-1).sum())
+    assert added == {"hit": 64 - misses, "miss": misses}
 
 
 def ragged_case():
@@ -496,6 +614,7 @@ def test_host_kernels_equal_plain(lib, batch, digits):
     np.testing.assert_array_equal(ok.astype(bool), to_numpy(want_ok))
     assert not ok.all() and ok.any()
     _check_poly_and_oneshot_host(lib, pk, u, v, planes, shared_lanes=(3,))
+    _check_poly_keyed_host(lib, pk, u, v, planes, ok)
     # the launch's scratch: a 512-thread block per 512 lanes, one per SM
     assert [lib.oneshot_scratch_rows(m, 132) for m in (1, 512, 513, 1 << 40)
             ] == [512, 512, 1024, 132 * 512]
@@ -571,6 +690,76 @@ def _check_poly_and_oneshot_host(lib, pk, u, v, planes, shared_lanes):
     np.testing.assert_array_equal(out, to_numpy(want_r))
     np.testing.assert_array_equal(ok.astype(bool), to_numpy(want_ok))
     np.testing.assert_array_equal(scratch, planes)
+
+
+def _check_poly_keyed_host(lib, pk, u, v, planes, ok):
+    """poly.cu's lookup lane (key_lookup_host) against key_lookup_plain on
+    the even lanes' keys, among them duplicates, keys sharing a prefix and
+    one changed past its prefix; then its keyed lane (poly_keyed_host, the
+    kernel's threads in turn) over a table of the even lanes' q_tables, the
+    odd lanes keyed -1 (each its own Verify_Init): equal to
+    poly_keyed_plain, and to the multiply and flags of the lanes' own
+    q_tables, with scratch rows for every miss, for a few and for one (its
+    thread takes every miss in turn); the scratch of a launch is one full
+    wave of threads at most."""
+    n = len(pk)
+    _check_key_lookup_host(lib, pk)
+    key = np.where(np.arange(n) % 2 == 0, np.arange(n) // 2,
+                   -1).astype(np.int32)
+    table, table_ok = np.ascontiguousarray(planes[::2]), ok[::2].copy()
+    order = np.argsort(key >= 0, kind="stable").astype(np.int64)
+    words = to_numpy(edwards_kernel.word_table(8, torch.device("cpu")))
+    want = verify_kernel.poly_keyed_plain(t(u), t(v), t(key), t(table),
+                                          t(table_ok.astype(bool)), t(pk))
+    r, r_ok = verify_kernel.poly_mult_plain(t(u), t(v), t(planes)), ok
+    np.testing.assert_array_equal(to_numpy(want[0]), to_numpy(r))
+    np.testing.assert_array_equal(to_numpy(want[1]), r_ok.astype(bool))
+    misses = int((key < 0).sum())
+    for rows in (misses, 3, 1):
+        out = np.zeros((n, 32), np.uint8)
+        got_ok = np.full(n, 7, np.uint8)
+        scratch = np.zeros((rows, 16, 160), np.int8)
+        lib.poly_keyed_host(out.ctypes.data, got_ok.ctypes.data,
+                            scratch.ctypes.data, rows, u.ctypes.data,
+                            v.ctypes.data, order.ctypes.data,
+                            key.ctypes.data, misses, table.ctypes.data,
+                            table_ok.ctypes.data, pk.ctypes.data,
+                            words.ctypes.data, n)
+        np.testing.assert_array_equal(out, to_numpy(want[0]), err_msg=rows)
+        np.testing.assert_array_equal(got_ok, ok, err_msg=rows)
+    assert [lib.poly_keyed_scratch_rows(m, 132) for m in (1, 50_688, 1 << 40)
+            ] == [1, 50_688, 132 * 3 * 128]
+
+
+def _check_key_lookup_host(lib, pk):
+    """key_lookup_host == key_lookup_plain: the rows, the counts, the
+    misses' order, and the hits' lanes (the host takes them from the
+    back)."""
+    keys = pk[::2].copy()
+    keys[3, :8] = keys[5, :8]
+    keys[4, :8] = keys[5, :8]                   # three keys, one prefix
+    lanes = np.concatenate([pk, keys[[5, 3, 4]], keys[:2]])
+    lanes[-1, 20] ^= 1                          # a cached prefix, no key
+    index = verify_kernel.key_index(t(keys))
+    key, order, counts = verify_kernel.key_lookup(t(lanes), t(keys), index)
+    m = len(lanes)
+    got = (np.zeros(m, np.int32), np.zeros(m, np.int64), np.zeros(2, np.int64))
+    prefixes, rows = (np.ascontiguousarray(to_numpy(a)) for a in index)
+    lib.key_lookup_host(*(a.ctypes.data for a in got), lanes.ctypes.data,
+                        prefixes.ctypes.data, rows.ctypes.data,
+                        keys.ctypes.data, len(keys), m)
+    np.testing.assert_array_equal(got[0], to_numpy(key))
+    misses = int((got[0] < 0).sum())
+    assert to_numpy(counts).tolist() == got[2].tolist() == [misses,
+                                                            m - misses]
+    cached = {r.tobytes() for r in keys}
+    assert [r.tobytes() in cached for r in lanes] == (got[0] >= 0).tolist()
+    hit = got[0] >= 0
+    assert (keys[got[0][hit]] == lanes[hit]).all() and 0 < misses < m
+    assert (got[0][-5:-1] >= 0).all() and got[0][-1] == -1
+    np.testing.assert_array_equal(got[1][:misses], to_numpy(order)[:misses])
+    np.testing.assert_array_equal(np.sort(got[1][misses:]),
+                                  np.sort(to_numpy(order)[misses:]))
 
 
 def _check_verify_init_host_random_keys(lib):
