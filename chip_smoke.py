@@ -360,6 +360,7 @@ def phase_card_tests():
 
 def phase_x25519_main(dev, rng, card, counts, batch=MAIN_BATCH):
     from curve25519_tpu_torch.models import montgomery, x25519
+    from curve25519_tpu_torch.ops.cuda import ladder_kernel
     from curve25519_tpu_torch.utils.profiling import bench
 
     sk_a = rand_bytes(rng, (batch, 32), dev)
@@ -396,6 +397,12 @@ def phase_x25519_main(dev, rng, card, counts, batch=MAIN_BATCH):
                                  batch / kernel_s, bms, by,
                                  share(bms, kernel_s * 1e3,
                                        "x25519_ladder_kernel")))
+    lane = ladder_kernel.lane_products()
+    check(lane["fp64"] > 0, "the ladder issues no product on the FP64 pipe")
+    print("phase 4 ladder pipes: a lane issues %d limb products on the FP64 "
+          "pipe and %d on IMAD.WIDE (%.1f%% on FP64)" % (
+              lane["fp64"], lane["int"],
+              100.0 * lane["fp64"] / (lane["fp64"] + lane["int"])))
     return {"max_abs_err": err, "ms": kernel_s * 1e3, "bound_ms": bms,
             "bound_by": by}
 

@@ -56,7 +56,8 @@ _vp, _i64, _int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # stream)
 LIBRARIES = {
     "ladder": (("x25519_ladder_kernel",),
-               {"x25519_ladder_launch": [_vp, _vp, _vp, _vp, _i64, _vp]}),
+               {"x25519_ladder_launch": [_vp, _vp, _vp, _vp, _i64, _vp],
+                "x25519_ladder_products": [_vp]}),
     "basemult": (("basemult_fold8_kernel", "basemult_fold8_limbs_kernel",
                   "basemult_fold4_kernel", "basemult_fold4_limbs_kernel"),
                  {"basemult_launch": [_vp, _vp, _vp, _i64, _vp, _i64, _vp,
@@ -266,6 +267,8 @@ def load_host(so_path):
     lib = ctypes.CDLL(str(so_path))
     lib.x25519_ladder_host.argtypes = [_vp, _vp, _vp, _vp, _i64]
     lib.x25519_ladder_host.restype = None
+    lib.x25519_ladder_products.argtypes = [_vp]
+    lib.x25519_ladder_products.restype = ctypes.c_int
     lib.fe25519_op_host.argtypes = [_int, _vp, _vp, _vp, _i64]
     lib.fe25519_op_host.restype = ctypes.c_int
     lib.fe_wide_op_host.argtypes = [_int, _vp, _vp, _vp, _i64]

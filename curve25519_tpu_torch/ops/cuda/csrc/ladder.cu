@@ -18,25 +18,35 @@
 // always runs 254 steps, and no branch or index of the field core depends
 // on a limb value.
 //
-// What bounds it on this card: the FMA pipe. A lane performs about 2,556
-// field multiplies and squarings (254 x (5M + 4S + 1 small) for the ladder,
-// 254 S + 11 M for the inversion, a few for the start), and nothing is
-// shared between lanes. The least work for them is about 125,000 32x32->64
-// products per lane (one Karatsuba level; the bound in chip_smoke.py also
-// lets the FP64 pipe take a share), and an `IMAD.WIDE.U32` issues at half
-// the rate of a 32-bit IMAD (about 31 per clock per SM). What the design
-// does about it:
-// the field core is fe25519_wide.cuh, ten 32-bit limbs in radix 2^25.5
-// whose products are single `IMAD.WIDE.U32`s summed into 64-bit columns
-// (100 per multiply, 55 per squaring, 10 per a24 multiply), against
-// 400 / 210 / 20 int32 IMADs and twice the carries of the reference's
-// 13-bit radix, which the plain version keeps; its multiply operands stay
-// 32-bit (fe_wide::operand), so no product pays a second IMAD for a high
-// word. One ladder step is about 1,700 SASS instructions, 740 of them
-// IMAD.WIDE. The state is five 10-limb elements: 130 registers, no spill,
-// 128 threads a block. zr arrives in the 13-bit radix: it is canonicalized
-// with fe25519 once per lane and decoded in the new radix; the output
-// depends only on zr's value mod p.
+// What bounds it on this card: the two exact multipliers. A lane performs
+// about 2,556 field multiplies and squarings (254 x (5M + 4S + 1 small) for
+// the ladder, 254 S + 11 M for the inversion, a few for the start), and
+// nothing is shared between lanes. An `IMAD.WIDE.U32` (32x32->64, the FMA
+// pipe) issues at about 31 per clock per SM, half the rate of a 32-bit
+// IMAD; a `DFMA` (fma.rn.f64, the FP64 pipe, otherwise idle here) at 64,
+// and its product of two balanced limbs of radix 2^25.5 is exact. The bound
+// in portbench/bound.py lets both pipes run at once. What the design does
+// about it: each step splits its work over both pipes. Three of the five
+// multiplies, c * (x2 - z2), aa * bb and u * (da - cb)^2, run on
+// fe25519_f64.cuh: the limbs carried to balanced doubles, 100 exact DFMAs
+// into 19 columns and carries by rounding adds, all on the FP64 pipe, and
+// back as fe_wide limbs (u's doubles are made once, before the loop). The
+// other two, the four squarings and the a24 multiply-add run on
+// fe25519_wide.cuh, ten 32-bit limbs in radix 2^25.5 whose products are
+// single `IMAD.WIDE.U32`s summed into 64-bit columns (100 per multiply, 55
+// per squaring, 10 per a24 multiply-add), its operands kept 32-bit
+// (fe_wide::operand), so no product pays a second IMAD for a high word.
+// The split is the one that measured fastest: the FP64 pipe's work beside
+// IMAD.WIDE is not free (the two overlap in part), and its moves and
+// carries cost as much as the 55 products of a squaring, so only a
+// multiply's 100 products pay for them; moving more than three multiplies
+// loads the FP64 pipe more than it unloads the FMA pipe. The inversion
+// stays on the integer core: it has nothing to overlap with.
+// x25519_ladder_products gives the limb products a lane issues on each
+// pipe. The state is five 10-limb elements; 128 threads a block, at most
+// 168 registers so that three blocks fit an SM. zr arrives in the 13-bit
+// radix: it is canonicalized with fe25519 once per lane and decoded in the
+// new radix; the output depends only on zr's value mod p.
 //
 // Built by curve25519_tpu_torch/ops/cuda/build.py: with nvcc into a shared
 // library that ctypes loads (x25519_ladder_launch), and with g++ for the CPU
@@ -44,11 +54,15 @@
 // 13-bit core that the other kernels share), which run the same per-lane
 // code on the host.
 
+#include "fe25519_f64.cuh"
 #include "weak_limbs.cuh"
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
+
+// Ladder steps after the start's virtual step for bit 254: bits 253..0.
+constexpr int kSteps = 254;
 
 // One lane: out = x-coordinate bytes of clamp(key) * u. `key` must already
 // be clamped (bit 254 set). `zr` is 20 signed-weak limbs, or null for one.
@@ -73,7 +87,7 @@ FE_HD void x25519_lane(uint8_t* out, const uint8_t* ubytes, const uint8_t* key,
   uint32_t prev = (key[31] >> 6) & 1;
 
 #pragma unroll 1
-  for (int i = 253; i >= 0; i--) {
+  for (int i = kSteps - 1; i >= 0; i--) {
     const uint32_t bit = (key[i >> 3] >> (i & 7)) & 1;
     const uint32_t s = bit ^ prev;
     const Fe x2 = select(s, bx, ax);
@@ -85,15 +99,15 @@ FE_HD void x25519_lane(uint8_t* out, const uint8_t* ubytes, const uint8_t* key,
     const Fe bm = sub(x2, z2);
     const Fe c = add(x3, z3);
     const Fe d = sub(x3, z3);
-    const Fe da = mul(d, a);
-    const Fe cb = mul(c, bm);
     const Fe aa = sqr(a);
     const Fe bb = sqr(bm);
-    bx = sqr(add(da, cb));
-    bz = mul(u, sqr(sub(da, cb)));
-    ax = mul(aa, bb);
+    const Fe da = mul(d, a);
+    const Fe cb = fe_f64::mul(c, bm);
+    ax = fe_f64::mul(aa, bb);
     const Fe e = sub(aa, bb);
     az = mul(e, mul_small_add(aa, A24, e));
+    bx = sqr(add(da, cb));
+    bz = fe_f64::mul(u, sqr(sub(da, cb)));
     prev = bit;
   }
   const Fe lo_x = select(prev, bx, ax);
@@ -105,7 +119,7 @@ FE_HD void x25519_lane(uint8_t* out, const uint8_t* ubytes, const uint8_t* key,
 
 constexpr int kBlock = 128;
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, 3)
 x25519_ladder_kernel(uint8_t* __restrict__ out, const uint8_t* __restrict__ u,
                      const uint8_t* __restrict__ k, const int32_t* __restrict__ zr,
                      int64_t n) {
@@ -133,6 +147,21 @@ extern "C" const char* cuda_error_string(int code) {
 }
 
 #endif  // __CUDACC__
+
+// The limb products one lane issues: out[0] on the FP64 pipe (three
+// multiplies a step), out[1] on the integer pipe (the other multiplies, 523
+// with the start's 3, the last one and the inversion's 11; the 1,272
+// squarings, 4 a step, 2 at the start and 254 in the inversion; 255 a24
+// multiply-adds). Returns 0.
+extern "C" int x25519_ladder_products(int64_t* out) {
+  constexpr int64_t kMul = fe_f64::kMulProducts;    // fe_wide::mul's too
+  constexpr int64_t kSqr = fe_wide::NLIMBS * (fe_wide::NLIMBS + 1) / 2;
+  constexpr int64_t kSmall = fe_wide::NLIMBS;
+  out[0] = 3 * kSteps * kMul;
+  out[1] = (3 + 2 * kSteps + 1 + 11) * kMul + (2 + 4 * kSteps + 254) * kSqr +
+           (1 + kSteps) * kSmall;
+  return 0;
+}
 
 // ---------------------------------------------------------------------------
 // Host entries: the same per-lane code on the CPU, for the tests.
@@ -193,7 +222,7 @@ enum WideOp {
   WIDE_ADD, WIDE_SUB, WIDE_MUL, WIDE_SQR, WIDE_MUL_SMALL_ADD, WIDE_SELECT,
   WIDE_CANON, WIDE_INV, WIDE_TO_BYTES, WIDE_FROM_BYTES, WIDE_NEG,
   WIDE_WEAK_CARRY, WIDE_POW2523, WIDE_IS_ZERO, WIDE_SQRT_RATIO,
-  WIDE_TO_LIMBS13, WIDE_FROM_LIMBS13
+  WIDE_TO_LIMBS13, WIDE_FROM_LIMBS13, WIDE_MUL_F64, WIDE_TO_F64, WIDE_FROM_F64
 };
 
 // One op of the wide core (fe25519_wide.cuh) over n lanes. x, y, out:
@@ -201,6 +230,9 @@ enum WideOp {
 // WIDE_FROM_BYTES reads [n, 32] bytes, WIDE_TO_LIMBS13 writes and
 // WIDE_FROM_LIMBS13 reads [n, 20] int32 13-bit limbs, WIDE_IS_ZERO writes
 // [n, 1] and WIDE_SQRT_RATIO [n, 11] (sqrt_ratio(x, y)'s limbs, then ok).
+// The FP64 multiply of fe25519_f64.cuh and its moves: WIDE_MUL_F64 is
+// fe_f64::mul, WIDE_TO_F64 writes [n, 20] doubles (to_balanced's y, then
+// 2y) and WIDE_FROM_F64 reads [n, 10] doubles, each 2^52 + a limb.
 // WIDE_MUL_SMALL_ADD computes x + A24 * y; WIDE_SELECT gives x on odd lanes
 // and y on even ones. Returns 0, or -1 for an unknown op.
 extern "C" int fe_wide_op_host(int op, void* out, const void* x,
@@ -213,6 +245,10 @@ extern "C" int fe_wide_op_host(int op, void* out, const void* x,
     Fe a, b, r;
     if (op == WIDE_FROM_BYTES) {
       r = from_bytes((const uint8_t*)x + 32 * lane);
+    } else if (op == WIDE_FROM_F64) {
+      double held[NLIMBS];
+      for (int i = 0; i < NLIMBS; i++) held[i] = ((const double*)x)[NLIMBS * lane + i];
+      r = fe_f64::limbs_of(held);
     } else if (op == WIDE_FROM_LIMBS13) {
       int32_t limb[kLimbs13];
       for (int k = 0; k < kLimbs13; k++) limb[k] = ((const int32_t*)x)[kLimbs13 * lane + k];
@@ -227,6 +263,17 @@ extern "C" int fe_wide_op_host(int op, void* out, const void* x,
         case WIDE_SUB: r = sub(a, b); break;
         case WIDE_MUL: r = mul(a, b); break;
         case WIDE_SQR: r = sqr(a); break;
+        case WIDE_MUL_F64: r = fe_f64::mul(a, b); break;
+        case WIDE_TO_F64: {
+          double* y = (double*)out + 2 * NLIMBS * lane;
+          double yb[NLIMBS], y2[NLIMBS];
+          fe_f64::to_balanced(yb, y2, a);
+          for (int i = 0; i < NLIMBS; i++) {
+            y[i] = yb[i];
+            y[NLIMBS + i] = y2[i];
+          }
+          continue;
+        }
         case WIDE_MUL_SMALL_ADD: r = mul_small_add(a, A24, b); break;
         case WIDE_SELECT: r = select((uint32_t)(lane & 1), a, b); break;
         case WIDE_CANON: r = canon(a); break;

@@ -4,8 +4,16 @@ of curve25519_tpu/ops/pallas/ladder_kernel.py.
 ``point_multiply_cuda`` takes the same arguments as
 ``models.montgomery.point_multiply`` and returns the same bytes. Tensors on a
 CUDA device launch the kernel (or raise); tensors on the CPU run the plain
-version, ``montgomery.point_multiply``. ``launches`` counts kernel launches.
+version, ``montgomery.point_multiply``. ``launches`` counts kernel launches;
+``pipe_products`` sums over launches the limb products the lanes issued on
+each of the card's multipliers (``"fp64"``: three of each ladder step's five
+multiplies, on the FP64 pipe; ``"int"``: the rest, on IMAD.WIDE), each launch
+adding its lanes times the per-lane counts that the library exports
+(``x25519_ladder_products``, ``lane_products``).
 """
+
+import ctypes
+import functools
 
 import torch
 
@@ -16,9 +24,21 @@ from curve25519_tpu_torch.ops.cuda import (
     as_bytes, as_limbs, build, flatten_batch, pick_device, use_cuda,
 )
 
-__all__ = ["point_multiply_cuda", "launches"]
+__all__ = ["point_multiply_cuda", "launches", "pipe_products",
+           "lane_products"]
 
 launches = 0
+pipe_products = {"fp64": 0, "int": 0}
+
+
+@functools.cache
+def lane_products():
+    """{"fp64": n, "int": n}: the limb products one lane of the kernel
+    issues on each pipe, as the CUDA library (built on first use) gives
+    them."""
+    counts = (ctypes.c_int64 * 2)()
+    build.load_cuda("ladder").x25519_ladder_products(counts)
+    return {"fp64": counts[0], "int": counts[1]}
 
 
 def point_multiply_cuda(point_bytes, sk_bytes, zr=None, device=None):
@@ -51,4 +71,6 @@ def point_multiply_cuda(point_bytes, sk_bytes, zr=None, device=None):
                  point.data_ptr(), sk.data_ptr(),
                  None if zr is None else zr.data_ptr(), n, n=n)
     launches += 1
+    for pipe, count in lane_products().items():
+        pipe_products[pipe] += n * count
     return unflatten(out)

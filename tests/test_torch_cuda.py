@@ -161,9 +161,16 @@ def test_kernel_equals_plain(dev, rng):
     zr = on(dev, np.stack([int_to_limbs(int.from_bytes(rng.bytes(32), "little")
                                         % P or 1) for _ in range(n)]))
     before = ladder_kernel.launches
+    products = dict(ladder_kernel.pipe_products)
     got = x25519.create_shared_key(peer, sk)
     torch.cuda.synchronize()
     assert ladder_kernel.launches == before + 1
+    # the launch added its lanes times the library's per-lane products
+    lane = ladder_kernel.lane_products()
+    assert lane["fp64"] > 0 and lane["int"] > 0
+    assert {k: v - products[k] for k, v in
+            ladder_kernel.pipe_products.items()} == {
+        k: n * lane[k] for k in ("fp64", "int")}
     assert torch.equal(got, montgomery.point_multiply(peer, sk))
     # a nonzero zr changes no byte, of the kernel or of the plain version
     assert torch.equal(x25519.create_shared_key(peer, sk, zr=zr), got)

@@ -74,10 +74,10 @@ WIDE_OPS = {"add": 0, "sub": 1, "mul": 2, "sqr": 3, "mul_small_add": 4,
             "select": 5, "canon": 6, "inv": 7, "to_bytes": 8,
             "from_bytes": 9, "neg": 10, "weak_carry": 11, "pow2523": 12,
             "is_zero": 13, "sqrt_ratio": 14, "to_limbs13": 15,
-            "from_limbs13": 16}
+            "from_limbs13": 16, "mul_f64": 17, "to_f64": 18, "from_f64": 19}
 # the row width of each wide op's output, where it is not 10 limbs
 WIDE_OUT = {"to_bytes": 32, "is_zero": 1, "sqrt_ratio": 11,
-            "to_limbs13": 20}
+            "to_limbs13": 20, "to_f64": 20}
 # fe25519_wide.cuh: limb i holds W_WIDTH[i] bits from bit W_OFF[i]
 W_WIDTH = [26 - (i & 1) for i in range(10)]
 W_OFF = [26 * ((i + 1) // 2) + 25 * (i // 2) for i in range(11)]
@@ -274,7 +274,7 @@ def test_from_bytes_equals_twin_and_sc_tile(lib, rng):
 _WIDE_OF = {("add", "sub"): ("add", "sub"),
             ("neg", "mul_small_add"): ("mul_small_add", "select", "neg",
                                        "weak_carry"),
-            ("mul", "sqr"): ("mul", "sqr"),
+            ("mul", "sqr"): ("mul", "sqr", "mul_f64"),
             ("canon", "to_bytes"): ("canon", "to_bytes", "is_zero",
                                     "to_limbs13", "from_limbs13")}
 
@@ -657,6 +657,143 @@ def _check_wide_poly_bounds():
         assert _within(_w_canon(out), [1 << w for w in W_WIDTH]), out
 
 
+# ---------------------------------------------------------------------------
+# The ladder's FP64 multiply (csrc/fe25519_f64.cuh)
+# ---------------------------------------------------------------------------
+F_HALF = [1 << (w - 1) for w in W_WIDTH]
+F_OFFSET = [19 << 27, (1 << 52) + (1 << 26)] + [1 << 52] * 8   # chain_offset
+F_START = [0] + [F_OFFSET[k - 1] >> W_WIDTH[k - 1]              # col_start
+                 for k in range(1, 10)] + [0] * 9
+F_BIAS9 = 1 << 29                                  # kCol9Keep, less the start
+
+
+def _f(v):
+    """An FP64 value that must be an integer below 2^53 in magnitude: then
+    it is exact, and so is the operation that gave it."""
+    assert -(1 << 53) < v[0] <= v[1] < 1 << 53, v
+    return v
+
+
+def _f_fma(a, b, c):
+    """dfma(a, b, c): the product and the sum, each below 2^53."""
+    ps = [x * y for x in a for y in b]
+    prod = _f((min(ps), max(ps)))
+    return _f((prod[0] + c[0], prod[1] + c[1]))
+
+
+def _f_cut(c, w, keep, floor):
+    """The cut of column (or limb) c at width w: r = c + 1.5 * 2^(52 + w),
+    rounded to nearest or toward minus infinity, keeps exponent 52 + w only
+    for |c| < 2^(51 + w), so that it rounds c to a multiple q 2^w; then
+    up = r - (magic + keep) = q 2^w - keep, a multiple of 2^w held exactly
+    below 2^(53 + w), and c - up. Returns (q, c - up) as intervals."""
+    assert -(1 << (51 + w)) <= c[0] and c[1] < 1 << (51 + w), (c, w)
+    assert keep % (1 << w) == 0
+    if floor:
+        q = (c[0] >> w, c[1] >> w)
+        lo, hi = 0, (1 << w) - 1
+    else:                                          # ties either way
+        h = 1 << (w - 1)
+        q = (-((h - c[0]) >> w), (c[1] + h) >> w)
+        lo, hi = -h, h
+    if q[0] == q[1]:
+        lo, hi = c[0] - (q[0] << w), c[1] - (q[0] << w)
+    for up in (q[0] << w, q[1] << w):
+        assert abs(up - keep) < 1 << (53 + w), (up, keep)
+    return q, _f((lo + keep, hi + keep))
+
+
+def _f_to_balanced(x, balanced=True):
+    """to_balanced on interval limbs (uint32 ops as in the wide core's
+    model), then the doubles y = 2^52 + v - (2^52 + 2^(w-1)) and 2y;
+    balanced=False leaves out the 2^(w-1), which moves limbs in [0, 2^w]
+    (one bit wider)."""
+    half = F_HALF if balanced else [0] * 10
+    t = [_iadd(a, _k(h), 32) for a, h in zip(x, half)]
+    carry = [_ishr(v, w) for v, w in zip(t, W_WIDTH)]
+    rest = [_imask(v, w) for v, w in zip(t, W_WIDTH)]
+    v = [_iadd(r, c, 32) for r, c in
+         zip(rest, [_imul(carry[9], _k(19), 32)] + carry[:9])]
+    y = [_f((lo - h, hi - h)) for (lo, hi), h in zip(v, half)]
+    return y, [_f((2 * lo, 2 * hi)) for lo, hi in y]
+
+
+def _f_product_column(y, z, z2):
+    """column(k, acc): acc plus column k's products, as fe_f64's column()
+    (y times z, times z2 where both limbs are odd)."""
+    def column(k, acc):
+        for i in range(10):
+            j = k - i
+            if 0 <= j < 10:
+                acc = _f_fma(y[i], z2[j] if i & j & 1 else z[j], acc)
+        return acc
+    return column
+
+
+def _f_reduce(column, bias9=F_BIAS9):
+    """The rest of fe_f64::mul on interval limbs, op by op: columns 18..10,
+    each cut to the nearest multiple of 2^w and folded into columns 0..9;
+    their own products; the cut of column 9; the floor chain 0..9, 0 and the
+    move out (the low word of 2^52 + limb, so 0 <= limb < 2^32). Returns the
+    limbs' intervals."""
+    col = [_k(c) for c in F_START[:10]]
+    for k in range(18, 9, -1):
+        q, rest = _f_cut(column(k, _k(0)), W_WIDTH[k % 10], 0, floor=False)
+        col[k - 10] = _f_fma(rest, _k(19), col[k - 10])
+        col[k - 9] = _f((col[k - 9][0] + 19 * q[0], col[k - 9][1] + 19 * q[1]))
+    for k in range(10):
+        col[k] = column(k, col[k])
+    keep9 = bias9 + F_START[9]
+    q, col[9] = _f_cut(col[9], 25, keep9, floor=False)
+    up9 = ((q[0] << 25) - keep9, (q[1] << 25) - keep9)  # a multiple of 2^25
+    col[0] = _f((col[0][0] + 19 * (up9[0] >> 25),
+                 col[0][1] + 19 * (up9[1] >> 25)))
+    out = [None] * 10
+    for k in range(10):
+        q, out[k] = _f_cut(col[k], W_WIDTH[k], F_OFFSET[k], floor=True)
+        t = ((q[0] << W_WIDTH[k]) - F_OFFSET[k],
+             (q[1] << W_WIDTH[k]) - F_OFFSET[k])
+        scale, dst = (1, k + 1) if k < 9 else (19, 0)
+        into = col if k < 9 else out
+        into[dst] = _f((into[dst][0] + scale * (t[0] >> W_WIDTH[k]),
+                        into[dst][1] + scale * (t[1] >> W_WIDTH[k])))
+    q, out[0] = _f_cut(out[0], 26, 1 << 52, floor=True)
+    out[1] = _f((out[1][0] + q[0] - (1 << 26), out[1][1] + q[1] - (1 << 26)))
+    limbs = [(lo - (1 << 52), hi - (1 << 52)) for lo, hi in out]
+    for v in limbs:
+        _u(*v, 32)                                  # the low word
+    return limbs
+
+
+def _f_mul(x, w, balanced=True, bias9=F_BIAS9):
+    """fe_f64::mul: both moves in, then _f_reduce of the product's columns;
+    balanced=False moves limbs one bit wider (unsigned)."""
+    y, _ = _f_to_balanced(x, balanced)
+    return _f_reduce(_f_product_column(y, *_f_to_balanced(w, balanced)),
+                     bias9)
+
+
+def _check_f64_mul_bounds():
+    """The executable bounds proof of fe25519_f64.cuh. On LOOSE limbs (what
+    the ladder multiplies) every move, product, column, partial sum, cut and
+    carry is an integer below 2^53 (checked by _f as the model runs), each
+    cut's sum keeps its exponent, and the limbs that come back are TIGHT;
+    the model itself fails where it should: limbs moved one bit wider
+    (unsigned, not balanced) pass 2^53 in the columns, and without column
+    9's bias limb 1 can go below zero."""
+    loose = [(0, b - 1) for b in W_LOOSE]
+    y, _ = _f_to_balanced(loose)
+    assert all(-h <= lo and hi <= h + 19 * 4 for (lo, hi), h in
+               zip(y, F_HALF)), y
+    out = _f_mul(loose, loose)
+    assert _within(out, W_TIGHT), out
+    assert out[1][1] <= 1 << 25, out
+    with pytest.raises(AssertionError):
+        _f_mul(loose, loose, balanced=False)
+    with pytest.raises(AssertionError):
+        _f_mul(loose, loose, bias9=0)
+
+
 def _check_wide_core_bounds():
     """The executable bounds proof of fe25519_wide.cuh. Every 32-bit
     operand and sum and every 64-bit column, partial sum and carry of each
@@ -679,16 +816,18 @@ def _check_wide_core_bounds():
     out = _w_mul(loose, loose)
     assert out[1][1] >= 1 << 25 and out[5][1] >= 1 << 25, out
 
-    # one ladder step (ladder.cu), state and u TIGHT
+    # one ladder step (ladder.cu), state and u TIGHT: cb, ax and bz on
+    # fe25519_f64.cuh, the rest on this core
     x2 = z2 = x3 = z3 = u = tight
     a, bm = _w_add(x2, z2), _w_sub(x2, z2)
     c, d = _w_add(x3, z3), _w_sub(x3, z3)
-    da, cb = _w_mul(d, a), _w_mul(c, bm)
+    da, cb = _w_mul(d, a), _f_mul(c, bm)
     aa, bb = _w_sqr(a), _w_sqr(bm)
     e = _w_sub(aa, bb)
-    for out in (_w_sqr(_w_add(da, cb)), _w_mul(u, _w_sqr(_w_sub(da, cb))),
-                _w_mul(aa, bb), _w_mul(e, _w_msa(aa, e))):
+    for out in (_w_sqr(_w_add(da, cb)), _f_mul(u, _w_sqr(_w_sub(da, cb))),
+                _f_mul(aa, bb), _w_mul(e, _w_msa(aa, e))):
         assert _within(out, W_TIGHT), out
+    _check_f64_mul_bounds()
     _check_wide_edwards_bounds()
     _check_wide_fold_bounds()
     _check_wide_poly_bounds()
@@ -718,7 +857,8 @@ def wide_op(lib, name, x, y=None):
     x = np.ascontiguousarray(x)
     y = None if y is None else np.ascontiguousarray(y, np.uint32)
     out = np.zeros((len(x), WIDE_OUT.get(name, 10)),
-                   np.uint8 if name == "to_bytes" else np.uint32)
+                   {"to_bytes": np.uint8, "to_f64": np.float64}.get(
+                       name, np.uint32))
     rc = lib.fe_wide_op_host(WIDE_OPS[name], out.ctypes.data, x.ctypes.data,
                              None if y is None else y.ctypes.data, len(x))
     assert rc == 0
@@ -772,6 +912,9 @@ def _check_wide_ops(lib, rng, names):
         if name in ("to_limbs13", "from_limbs13"):
             _check_wide_conversions(lib, rng)
             continue
+        if name == "mul_f64":
+            _check_f64_mul(lib, rng)
+            continue
         ins = {"add": W_TIGHT, "sub": W_TIGHT, "neg": W_TIGHT,
                "weak_carry": [1 << 31] * 10}.get(name, W_LOOSE)
         x = _w_inputs(rng, ins, 4 if name in ("inv", "pow2523") else 40)
@@ -824,6 +967,42 @@ def _check_wide_ops(lib, rng, names):
                 np.testing.assert_array_equal(row, a if lane & 1 else b)
 
 
+def _check_f64_mul(lib, rng):
+    """fe_f64::mul and its moves through fe_wide_op_host (g++, IEEE
+    doubles), on random LOOSE rows and the extremes of _w_inputs (every limb
+    at its LOOSE bound, zero, and the canonical limbs of 1, p - 1 and
+    2^255 - 1, each squared), against fe_wide::mul and
+    Python integers. The products are TIGHT and equal fe_wide::mul's limb
+    for limb, except where x y lies within 2^26 of a multiple of p: there
+    both are TIGHT limbs of the same field element, which may differ by p,
+    and their canonical limbs are equal. The move in gives balanced limbs of
+    x's value (|y_i| at most 2^(w-1) + 76), and 2y; the move out reads limb
+    v from the double 2^52 + v."""
+    x = _w_inputs(rng, W_LOOSE, 40)
+    y = _w_inputs(rng, W_LOOSE, 40)       # the same extremes: squared
+    got, want = wide_op(lib, "mul_f64", x, y), wide_op(lib, "mul", x, y)
+    for lane, (row, ref, a, b) in enumerate(zip(got, want, x, y)):
+        prod = _w_value(a) * _w_value(b) % P
+        assert _within([(int(t), int(t)) for t in row], W_TIGHT), lane
+        assert _w_value(row) % P == prod, lane
+        if min(prod, P - prod) < 1 << 26:
+            assert lane >= len(x) - 5, lane           # among the extremes
+            continue
+        np.testing.assert_array_equal(row, ref, err_msg=str(lane))
+    np.testing.assert_array_equal(wide_op(lib, "canon", got),
+                                  wide_op(lib, "canon", want))
+    moved = wide_op(lib, "to_f64", x)
+    for lane, (row, a) in enumerate(zip(moved, x)):
+        v = [int(t) for t in row[:10]]
+        assert row[:10].tolist() == v and row[10:].tolist() == [2 * t for t in v]
+        assert sum(t << W_OFF[i] for i, t in enumerate(v)) % P == \
+            _w_value(a) % P, lane
+        assert all(abs(t) <= h + 76 for t, h in zip(v, F_HALF)), (lane, v)
+    limbs = np.concatenate([x[:, :10], [[0] * 10, [(1 << 32) - 1] * 10]])
+    held = limbs.astype(np.float64) + 2.0**52
+    np.testing.assert_array_equal(wide_op(lib, "from_f64", held), limbs)
+
+
 def _check_wide_rfc7748_iterated(lib):
     """RFC 7748 5.2: k = u = 9, then k, u = X25519(k, u), k; after 1 and
     after 1,000 iterations, through x25519_ladder_host."""
@@ -850,10 +1029,28 @@ def test_host_ladder_equals_plain(lib, rng):
     want = montgomery.point_multiply(torch.from_numpy(u), torch.from_numpy(k))
     np.testing.assert_array_equal(got, want.numpy())
     assert not got[0].any()
+    _check_ladder_products(lib)
     # the host core's ladder (native/ref25519.cpp) on the same lanes
     assert [bindings.x25519(bytes(a), bytes(b)) for a, b in zip(k, u)] == [
         bytes(r) for r in got]
     _check_host_core_equals_jax(rng)
+
+
+def _check_ladder_products(lib):
+    """x25519_ladder_products, the per-lane counts that the wrapper adds to
+    ladder_kernel.pipe_products, against the lane's operations: on the FP64
+    pipe 100 products for each of a step's three multiplies there; on
+    IMAD.WIDE 100 for each other multiply (2 a step, 3 at the start, the
+    last one, 11 in the inversion), 55 for each squaring (4 a step, 2 at the
+    start, 254 in the inversion) and 10 for each a24 multiply-add (one a
+    step, one at the start)."""
+    counts = np.zeros(2, np.int64)
+    assert lib.x25519_ladder_products(counts.ctypes.data) == 0
+    steps = 254
+    assert counts.tolist() == [
+        3 * steps * 100,
+        (2 * steps + 3 + 1 + 11) * 100 + (4 * steps + 2 + 254) * 55
+        + (steps + 1) * 10]
 
 
 def _check_host_core_equals_jax(rng):
